@@ -20,7 +20,27 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      launched. 16 sampled reads must come out with under a fifth of their raw
      error rate;
   5. pass 1 on the first 16 long reads once more with sprint_impl="torch"
-     (the kernel's plain version): the FASTQ must be byte-identical.
+     (the kernel's plain version): the FASTQ must be byte-identical;
+  6. [devplan] the device planner on the card, on the slice's k=31 graph
+     (first read batch of raw long reads) and k=63 graph (first batch of
+     pass-1 reads): its runs and 1-edit seeds must equal the host planner's,
+     timed per batch against it; then pass 1 on the 16 reads of phase 5 with
+     plan_on_device=True must write the same FASTQ bytes. Fails if every
+     batch fell back to the host;
+  7. [cli] the user's command on the slice's data (short reads written as
+     FASTA): `python -m ratatosk_tpu_torch.cli correct -s -l -o -c 2
+     --devices 1 -v` with the defaults (k 31/63, SNP detection and pass-1
+     edge rescue on), through cli.main(..., device="cuda"). The kernel must
+     launch, every read come out in order, and the sampled error fall below
+     a fifth of the raw error;
+  8. [index] `index -1` on the same data, the index's load and save timed on
+     their own, then `correct -g <prefix>.index.k31.npz -1`: the files must
+     exist, the kernel launch and the sampled error fall below raw/5. How
+     many reads differ from the [cli] run's pass 1 is printed, not checked
+     (a saved index drops the colors' full CSR, which SNP detection reads).
+Launch counts are reset just before each path (the slice, the 16-read
+planner run, the [cli] run, the -g run) and read just after; the kernels'
+record sums them.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -165,6 +185,36 @@ def _write_long_reads(rng, genome, n_reads, read_len, path):
     return truth, total
 
 
+def _sample(n_reads: int):
+    import numpy as np
+    return sorted(np.random.default_rng(SEED + 1).choice(
+        n_reads, size=min(16, n_reads), replace=False).tolist())
+
+
+def _check_reads(path: str, n_reads: int) -> dict:
+    """All n_reads long reads written, in input order; name -> codes."""
+    from ratatosk_tpu_torch.io import fastx
+    recs = list(fastx.read_fastx(path))
+    if [r.name for r in recs] != [f"L{i}" for i in range(n_reads)]:
+        raise AssertionError(f"{path}: {len(recs)} of {n_reads} reads "
+                             "written, or out of order")
+    return {r.name: r.codes for r in recs}
+
+
+def _sampled_error(truth, out: dict) -> float:
+    import numpy as np
+    from ratatosk_tpu_torch import testing
+    return float(np.mean([testing.error_rate(out[f"L{i}"], truth[i][1])
+                          for i in _sample(len(truth))]))
+
+
+def _raw_error(truth) -> float:
+    import numpy as np
+    from ratatosk_tpu_torch import testing
+    return float(np.mean([testing.error_rate(truth[i][0], truth[i][1])
+                          for i in _sample(len(truth))]))
+
+
 def run_slice(device, glen: int, n_reads: int, workdir: str, smi: str = ""):
     """The bench.py main path through the port on `device`. Returns a dict of
     counts and phase times; raises on any failed check."""
@@ -236,22 +286,14 @@ def run_slice(device, glen: int, n_reads: int, workdir: str, smi: str = ""):
 
     if dev.type == "cuda" and min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
-    for path, n in ((p1_path, n1), (p2_path, n2)):
-        names = [r.name for r in fastx.read_fastx(path)]
-        if n != n_reads or names != [f"L{i}" for i in range(n_reads)]:
-            raise AssertionError(f"{path}: {n} of {n_reads} reads written")
-    out = {r.name: r.codes for r in fastx.read_fastx(p2_path)}
-    out1 = {r.name: r.codes for r in fastx.read_fastx(p1_path)}
-    sample = sorted(np.random.default_rng(SEED + 1).choice(
-        n_reads, size=min(16, n_reads), replace=False).tolist())
-    raw = float(np.mean([testing.error_rate(truth[i][0], truth[i][1])
-                         for i in sample]))
-    mid = float(np.mean([testing.error_rate(out1[f"L{i}"], truth[i][1])
-                         for i in sample]))
-    cor = float(np.mean([testing.error_rate(out[f"L{i}"], truth[i][1])
-                         for i in sample]))
-    log(f"[slice] error on {len(sample)} sampled reads: raw {raw:.4f}, "
-        f"pass 1 {mid:.4f}, pass 2 {cor:.4f}")
+    if n1 != n_reads or n2 != n_reads:
+        raise AssertionError(f"{n1}/{n2} of {n_reads} reads corrected")
+    out1 = _check_reads(p1_path, n_reads)
+    out = _check_reads(p2_path, n_reads)
+    raw, mid, cor = (_raw_error(truth), _sampled_error(truth, out1),
+                     _sampled_error(truth, out))
+    log(f"[slice] error on {len(_sample(n_reads))} sampled reads: raw "
+        f"{raw:.4f}, pass 1 {mid:.4f}, pass 2 {cor:.4f}")
     if not cor < raw / 5:
         raise AssertionError(f"corrected error {cor:.4f} is not below raw/5 "
                              f"({raw:.4f}/5)")
@@ -260,8 +302,8 @@ def run_slice(device, glen: int, n_reads: int, workdir: str, smi: str = ""):
         f"{total_bases / dt:.1f} corrected bases/s on {smi or device}")
     return dict(launches=launches, times=times, bases=total_bases,
                 bases_per_s=total_bases / dt, raw_err=raw, p1_err=mid,
-                p2_err=cor, corr1=corr1, o1=o1, lr_path=lr_path,
-                p1_path=p1_path)
+                p2_err=cor, corr1=corr1, corr2=corr2, o1=o1, truth=truth,
+                sreads=sreads, lr_path=lr_path, p1_path=p1_path)
 
 
 def phase_plain_vs_kernel(device, sl: dict, workdir: str, n: int = 16):
@@ -288,6 +330,243 @@ def phase_plain_vs_kernel(device, sl: dict, workdir: str, n: int = 16):
         raise AssertionError("pass-1 FASTQ differs between the sprint kernel "
                              "and its plain version")
     log(f"[plain] FASTQ byte-identical ({len(outs['kernel'])} bytes)")
+    return head, outs["kernel"]
+
+
+def _first_batch(path: str, batch_bp: int):
+    """The first read batch correct_file would form from a FASTQ file."""
+    from ratatosk_tpu_torch.io import fastx
+    reads, bp = [], 0
+    for rec in fastx.read_fastx(path):
+        reads.append(rec.codes)
+        bp += len(rec.codes)
+        if bp >= batch_bp:
+            break
+    return reads
+
+
+def _probe_spans(cdbg, colors, runs_raw, reads, min_gap: int):
+    """The anchor-free spans Corrector._plan_seeds probes for 1-edit seeds
+    (pass 1: no span is at maximal quality)."""
+    from ratatosk_tpu_torch.correct.seeds import filter_runs_by_color
+    k = cdbg.k
+    spans = []
+    for i, (codes, rr) in enumerate(zip(reads, runs_raw)):
+        runs = filter_runs_by_color(rr, colors)
+        if not runs:
+            continue
+        cuts = [(0, runs[0].s)]
+        cuts += [(r.e + (r.rspan or k), n.s + k) for r, n in zip(runs, runs[1:])]
+        cuts.append((runs[-1].e + (runs[-1].rspan or k), len(codes)))
+        spans += [(i, a, b) for a, b in cuts if b - a >= min_gap]
+    return spans
+
+
+def _run_keys(lists):
+    return [[(r.s, r.e, r.uid, r.direction, r.o_s, r.weak, r.rspan)
+             for r in runs] for runs in lists]
+
+
+def phase_devplan(device, sl: dict, workdir: str, head: str,
+                  host_fastq: bytes):
+    """The device planner against the host planner on the card: runs and
+    seeds of one read batch per graph, ms per batch, then a pass-1 run with
+    plan_on_device=True. Returns the sprint launches of that run."""
+    import dataclasses
+    import torch
+    from ratatosk_tpu_torch.correct.engine import _NEAR_EXACT_SKIP, Corrector
+    from ratatosk_tpu_torch.correct.seeds import (find_runs,
+                                                  find_weak_seeds_batch)
+    from ratatosk_tpu_torch.ops import sprint as SP
+    from ratatosk_tpu_torch.ops.plan_device import DevicePlanner
+    from ratatosk_tpu_torch.pipeline import correct_file
+    o1 = sl["o1"]
+    stride, nes = o1.weak_seed_stride, _NEAR_EXACT_SKIP
+    batches = fallbacks = 0
+    for name, corr, path in (("k31", sl["corr1"], sl["lr_path"]),
+                             ("k63", sl["corr2"], sl["p1_path"])):
+        cdbg = corr.cdbg
+        reads = _first_batch(path, o1.read_batch_bp)
+        t = time.time()
+        dp = DevicePlanner.build(cdbg, device)
+        dp.warmup(o1.read_batch_bp, stride=stride, near_exact_skip=nes)
+        t_build = time.time() - t
+
+        def host():
+            runs = [find_runs(cdbg, r) for r in reads]
+            spans = _probe_spans(cdbg, corr.colors, runs, reads,
+                                 o1.weak_seed_min_gap)
+            return runs, spans, find_weak_seeds_batch(cdbg, reads, spans,
+                                                      stride=stride)
+
+        def dev(spans):
+            runs = dp.collect_runs(dp.dispatch_runs(reads))
+            return runs, dp.collect_probe(dp.dispatch_probe(
+                reads, spans, stride=stride, near_exact_skip=nes))
+
+        runs_h, spans, seeds_h = host()
+        runs_d, seeds_d = dev(spans)
+        n_fb = dp.n_fallback
+        ms = {"host": [], "device": []}
+        for who in ("host", "device", "device", "host"):
+            t = time.time()
+            host() if who == "host" else dev(spans)
+            torch.cuda.synchronize()
+            ms[who].append(1000 * (time.time() - t))
+        batches += 1
+        if runs_d is None or seeds_d is None:
+            fallbacks += 1
+        if runs_d is not None and _run_keys(runs_d) != _run_keys(runs_h):
+            raise AssertionError(f"device runs differ from the host "
+                                 f"planner's on the {name} graph")
+        if seeds_d is not None and _run_keys(seeds_d) != _run_keys(seeds_h):
+            raise AssertionError(f"device seeds differ from the host "
+                                 f"planner's on the {name} graph")
+        log(f"[devplan] {name}: {cdbg.index.n} keys, batch of {len(reads)} "
+            f"reads / {sum(map(len, reads))} bp, {len(spans)} probe spans; "
+            f"runs {'equal' if runs_d is not None else 'overflowed'}, seeds "
+            f"{'equal' if seeds_d is not None else 'fell back'} "
+            f"({sum(map(len, seeds_h))} seeds); build+warmup {t_build:.2f}s; "
+            f"ms per batch: host planner "
+            f"{', '.join(f'{x:.1f}' for x in ms['host'])}, device planner "
+            f"{', '.join(f'{x:.1f}' for x in ms['device'])}; "
+            f"n_fallback {n_fb}; probe stats {dp.last_stats.tolist()}")
+
+    o1d = dataclasses.replace(o1, plan_on_device=True)
+    corr = Corrector(sl["corr1"].cdbg, sl["corr1"].colors, o1d, device=device)
+    corr.warmup_compile()
+    out = Path(workdir) / "devplan.fq"
+    SP.sprint_rows.launches = 0
+    torch.cuda.synchronize()
+    t = time.time()
+    correct_file(corr, o1d, [head], str(out), 1)
+    torch.cuda.synchronize()
+    launches = SP.sprint_rows.launches
+    dt = time.time() - t
+    batches += 1
+    fallbacks += corr.devplan.n_fallback
+    if out.read_bytes() != host_fastq:
+        raise AssertionError("pass 1 with plan_on_device=True differs from "
+                             "the host planner's FASTQ")
+    if fallbacks >= batches:
+        raise AssertionError("every planner batch fell back to the host")
+    log(f"[devplan] pass 1 on 16 reads with plan_on_device=True: "
+        f"byte-identical to the host planner ({len(host_fastq)} bytes) in "
+        f"{dt:.1f}s, plan {corr.timers['plan']:.2f}s, n_fallback "
+        f"{corr.devplan.n_fallback}, {launches} kernel launches; "
+        f"{fallbacks} of {batches} planner batches fell back")
+    if launches <= 0:
+        raise AssertionError("the sprint kernel never launched")
+    return launches
+
+
+def _write_short_fasta(sreads, path: str) -> None:
+    from ratatosk_tpu_torch import dna
+    with open(path, "w") as f:
+        for i, r in enumerate(sreads):
+            f.write(f">S{i}\n{dna.decode(r)}\n")
+
+
+def _trace(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_cli(sl: dict, workdir: str, short_fa: str, smi: str):
+    """The user's `correct` command at the slice's data shape."""
+    import torch
+    from ratatosk_tpu_torch import cli
+    from ratatosk_tpu_torch.ops import sprint as SP
+    truth, n_reads = sl["truth"], len(sl["truth"])
+    out = os.path.join(workdir, "cli")
+    trace = os.path.join(workdir, "cli.trace.jsonl")
+    SP.sprint_rows.launches = 0
+    t = time.time()
+    cli.main(["correct", "-s", short_fa, "-l", sl["lr_path"], "-o", out,
+              "-c", "2", "--devices", "1", "-v", "--trace-json", trace],
+             device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = SP.sprint_rows.launches
+    if launches <= 0:
+        raise AssertionError("the sprint kernel never launched in the CLI run")
+    evs = _trace(trace)
+    snp = [e for e in evs if e["ev"] == "snp"]
+    rescue = [e for e in evs if e["ev"] == "rescue"]
+    passes = {e["pass_no"]: e for e in evs if e["ev"] == "pass_done"}
+    mid = _sampled_error(truth, _check_reads(out + ".2.fastq", n_reads))
+    cor = _sampled_error(truth, _check_reads(out + ".fastq", n_reads))
+    raw = _raw_error(truth)
+    dt = passes[1]["secs"] + passes[2]["secs"]
+    steps = (sum(e["secs"] for e in snp + rescue) + dt)
+    log(f"[cli] correct -c 2 --devices 1 (k 31/63, SNPs and edge rescue on): "
+        f"{wall:.1f}s wall; edge rescue {rescue[0]['edges']} edges in "
+        f"{rescue[0]['secs']:.1f}s; SNP detection "
+        + ", ".join(f"pass {i + 1} {e['sites']} sites in {e['secs']:.1f}s"
+                    for i, e in enumerate(snp))
+        + f"; pass 1 {passes[1]['secs']:.1f}s, pass 2 {passes[2]['secs']:.1f}s"
+        f"; index builds and I/O {wall - steps:.1f}s; {launches} kernel "
+        f"launches")
+    log(f"[cli] {sl['bases']} bases through 2 passes in {dt:.1f}s: "
+        f"{sl['bases'] / dt:.1f} corrected bases/s on {smi}; error on "
+        f"{len(_sample(n_reads))} sampled reads: raw {raw:.4f}, pass 1 "
+        f"{mid:.4f}, pass 2 {cor:.4f}")
+    if not cor < raw / 5:
+        raise AssertionError(f"CLI error {cor:.4f} is not below raw/5")
+    return dict(launches=launches, out=out)
+
+
+def phase_index(sl: dict, workdir: str, short_fa: str, cli_out: str):
+    """`index -1`, the index's load and save, then `correct -g ... -1`."""
+    import numpy as np
+    import torch
+    from ratatosk_tpu_torch import cli
+    from ratatosk_tpu_torch.graph import interop as IT
+    from ratatosk_tpu_torch.graph import io as GIO
+    from ratatosk_tpu_torch.ops import sprint as SP
+    truth, n_reads = sl["truth"], len(sl["truth"])
+    pref = os.path.join(workdir, "idx")
+    t = time.time()
+    cli.main(["index", "-s", short_fa, "-l", sl["lr_path"], "-o", pref, "-1",
+              "-v"])
+    t_index = time.time() - t
+    npz, fasta = GIO.index_path(pref, 31), IT.fasta_index_path(pref, 31)
+    for f in (npz, fasta):
+        if not os.path.getsize(f):
+            raise AssertionError(f"{f} is empty")
+    t = time.time()
+    cdbg, colors = GIO.load_index(npz)
+    t_load = time.time() - t
+    t = time.time()
+    GIO.save_index(os.path.join(workdir, "resave.npz"), cdbg, colors)
+    t_save = time.time() - t
+    out = os.path.join(workdir, "g")
+    trace = os.path.join(workdir, "g.trace.jsonl")
+    SP.sprint_rows.launches = 0
+    t = time.time()
+    cli.main(["correct", "-g", npz, "-l", sl["lr_path"], "-o", out, "-1",
+              "-c", "2", "--devices", "1", "-v", "--trace-json", trace],
+             device="cuda")
+    torch.cuda.synchronize()
+    t_g = time.time() - t
+    launches = SP.sprint_rows.launches
+    if launches <= 0:
+        raise AssertionError("the sprint kernel never launched in the -g run")
+    p1 = [e for e in _trace(trace) if e["ev"] == "pass_done"][0]
+    got = _check_reads(out + ".fastq", n_reads)
+    ref = _check_reads(cli_out + ".2.fastq", n_reads)
+    n_diff = sum(not np.array_equal(got[n], ref[n]) for n in got)
+    raw, cor = _raw_error(truth), _sampled_error(truth, got)
+    log(f"[index] index -1 in {t_index:.1f}s: {os.path.getsize(npz)} byte "
+        f"npz, {os.path.getsize(fasta)} byte unitig FASTA; load "
+        f"{t_load:.2f}s, save {t_save:.2f}s")
+    log(f"[index] correct -g <npz> -1 in {t_g:.1f}s (pass 1 "
+        f"{p1['secs']:.1f}s), {launches} kernel launches; error raw "
+        f"{raw:.4f}, corrected {cor:.4f}; {n_diff} of {n_reads} reads "
+        "differ from the [cli] run's pass 1")
+    if not cor < raw / 5:
+        raise AssertionError(f"-g run error {cor:.4f} is not below raw/5")
+    return dict(launches=launches)
 
 
 def main(argv=None) -> int:
@@ -308,9 +587,23 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
     phase_build()
     krows = phase_kernels(torch, dev)
+    launches = {}
     with tempfile.TemporaryDirectory(prefix="ratatosk_smoke_") as workdir:
         sl = run_slice(dev, args.genome_bp, args.long_reads, workdir, smi)
-        phase_plain_vs_kernel(dev, sl, workdir)
+        launches["slice"] = sl["launches"]["sprint_rows"]
+        head, host_fastq = phase_plain_vs_kernel(dev, sl, workdir)
+        launches["devplan"] = phase_devplan(dev, sl, workdir, head,
+                                            host_fastq)
+        short_fa = os.path.join(workdir, "short.fa")
+        t = time.time()
+        _write_short_fasta(sl.pop("sreads"), short_fa)
+        log(f"[cli] wrote {os.path.getsize(short_fa)} bytes of short-read "
+            f"FASTA in {time.time() - t:.1f}s")
+        sl.pop("corr1"), sl.pop("corr2")
+        cl = phase_cli(sl, workdir, short_fa, smi)
+        launches["cli"] = cl["launches"]
+        launches["index_g"] = phase_index(sl, workdir, short_fa,
+                                          cl["out"])["launches"]
     torch.cuda.synchronize()
     headline = krows[257]
     log(f"[done] {time.time() - t_all:.1f}s on {smi}")
@@ -318,7 +611,8 @@ def main(argv=None) -> int:
         "name": "sprint_rows", "route": "cuda",
         "source": "ratatosk_tpu_torch/csrc/sprint.cu",
         "replaces": "ratatosk_tpu/ops/sprint_pallas.py:58",
-        "launches": sl["launches"]["sprint_rows"],
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": max(r["max_abs_err"] for r in krows.values()),
         "ms": headline["ms"], "plain_ms": headline["plain_ms"],
         "by_width": {str(w): r for w, r in krows.items()},

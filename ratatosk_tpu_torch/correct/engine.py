@@ -19,9 +19,10 @@ Port of ratatosk_tpu/correct/engine.py: the host planning and assembly are
 the reference's code unchanged. The device parts are rewritten for torch:
 `make_region_batch` uploads one tensor per field to the corrector's device,
 `_launch_bucket` runs the beam and the finish bundle eagerly, and
-`_execute_regions` reads the two result arrays back with `.cpu()`. The
-multi-device mesh, the sharded index, the device planner, phasing and SNP
-annotation are not ported yet: the constructor raises for them.
+`_execute_regions` reads the two result arrays back with `.cpu()`; the
+device planner (`plan_on_device`) runs in plain torch on the same device.
+The multi-device mesh and the sharded index are not ported yet: the
+constructor raises for a mesh.
 """
 
 from __future__ import annotations
@@ -207,25 +208,26 @@ class Corrector:
         caller; nothing falls back to another device). sprint_impl: "auto"
         runs the beam's sprint substeps through the hand-written kernel on a
         CUDA device, "torch" through its plain version."""
-        self.opt = opt or CorrectOpt()
-        for name, val in (("mesh", mesh), ("hap", hap), ("snps", snps)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"Corrector({name}=...) is not ported to ratatosk_tpu_torch "
-                    "yet; use the JAX package (ratatosk_tpu) for it")
-        if self.opt.plan_on_device:
+        if mesh is not None:
             raise NotImplementedError(
-                "plan_on_device (the device planner) is not ported to "
-                "ratatosk_tpu_torch yet; use the host planner")
+                "Corrector(mesh=...) (several GPUs) is not ported to "
+                "ratatosk_tpu_torch yet: ROADMAP.md Queue 1 item 5")
         self.cdbg = cdbg
         self.colors = colors
-        self.hap = hap
-        self.snps = snps
+        self.opt = opt or CorrectOpt()
+        self.hap = hap   # graph.phasing.HapReads or None
+        self.snps = snps  # graph.snp.SnpAnnotations or None
         self.sharded = None   # the sharded index is not ported
-        self.devplan = None   # the device planner is not ported
         self.device = torch.device(device)
         self.sprint_impl = sprint_impl
         self.g = DeviceGraph.from_host(cdbg, colors, self.device)
+        # device batch planner (anchor lookup + 1-edit probe as async device
+        # work, ops/plan_device.py); None past its index-size limit, where
+        # the host planner serves the index
+        self.devplan = None
+        if self.opt.plan_on_device:
+            from ratatosk_tpu_torch.ops.plan_device import DevicePlanner
+            self.devplan = DevicePlanner.build(cdbg, self.device)
         self.nk = cdbg.nkmers
         self.branching = branching_mask(colors.edge_support)
         # repeat-coverage exclusion threshold (getMaxKmerCoverage,
@@ -709,10 +711,15 @@ class Corrector:
 
     def warmup_compile(self) -> None:
         """Build the kernel library before the timed run (nvcc at first use;
-        PyTorch itself compiles nothing)."""
+        PyTorch itself compiles nothing), and pin the device planner's pad
+        tier at the production batch size."""
         if self.device.type == "cuda" and self.sprint_impl == "auto":
             from ratatosk_tpu_torch.ops import sprint
             sprint.build_library()
+        if self.devplan is not None:
+            self.devplan.warmup(self.opt.read_batch_bp,
+                                stride=self.opt.weak_seed_stride,
+                                near_exact_skip=_NEAR_EXACT_SKIP)
 
     def _execute_regions(self, regions: List[RegionSpec]):
         # forward pass, bucketed by target length; all bucket batches are

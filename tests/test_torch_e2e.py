@@ -9,6 +9,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from ratatosk_tpu import pipeline as JP
 from ratatosk_tpu.config import CorrectOpt as JOpt
@@ -117,16 +118,36 @@ def test_two_pass_correct_file_matches_jax(dataset, jax_two_pass, nb_threads):
     assert cor < raw / 4, f"{cor:.4f} vs raw {raw:.4f}"
 
 
+def test_two_pass_device_planner_matches_jax(dataset, jax_two_pass):
+    """plan_on_device on the double buffer's worker thread: the planner's
+    work and the launches interleave, and the bytes stay the same."""
+    tmp, sreads, _, lr = dataset
+    opt = TOpt(small_k=K1, k=K2, beam_width=8, batch_regions=32,
+               read_batch_bp=2000, nb_threads=2, plan_on_device=True)
+    got = _two_pass(TP, TCorrector, TFX.read_fastx, opt, sreads, lr,
+                    str(tmp / "torch_devplan"), device="cpu")
+    assert got == jax_two_pass
+
+
 def test_unported_paths_raise(dataset):
+    """What the port still lacks raises: the multi-GPU mesh, and a run that
+    would put more than one device in play. Nothing runs elsewhere
+    instead."""
     _, sreads, _, lr = dataset
     cdbg = TB.build_cdbg(sreads[:200], K1, min_count=2)
     colors = t_color_graph(cdbg, sreads[:200])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         TCorrector(cdbg, colors, TOpt(small_k=K1, k=K2), device="cpu",
-                   hap=object())
-    with pytest.raises(NotImplementedError):
-        TCorrector(cdbg, colors, TOpt(small_k=K1, k=K2, plan_on_device=True),
-                   device="cpu")
-    with pytest.raises(NotImplementedError):
-        TP.run_correct(TOpt(small_k=K1, k=K2))
+                   mesh=object())
+    for n_devices in (2, 8):
+        opt = TOpt(small_k=K1, k=K2, n_devices=n_devices,
+                   filename_seq_in=[lr], filename_long_in=[lr])
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            TP.run_correct(opt, device="cpu")
+    for n_devices in (0, 1):
+        opt = TOpt(n_devices=n_devices)
+        assert TP.check_devices(opt, "cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TP.check_devices(TOpt(n_devices=1), "cuda")
     assert os.path.exists(lr)

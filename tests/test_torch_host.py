@@ -4,7 +4,8 @@
     the package prefix is normalised. Exempt, because the port rewrites them:
     ops/kmer_index.py (host dataclass only) and correct/engine.py (torch
     device parts).
-(b) A fresh interpreter imports the port's entry points without loading jax.
+(b) A fresh interpreter imports the port's entry points (the CLI and the
+    device planner included) without loading jax.
 """
 
 import os
@@ -22,6 +23,8 @@ COPIED = [
     "ops/native_align.py", "io/native.py", "io/fastx.py",
     "graph/keys.py", "graph/build.py", "graph/colors.py", "graph/cycles.py",
     "correct/seeds.py", "correct/choose.py",
+    "graph/rescue_edges.py", "graph/snp.py", "graph/phasing.py",
+    "graph/rephase.py", "graph/rescue.py", "graph/io.py", "graph/interop.py",
 ]
 
 
@@ -36,7 +39,9 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import ratatosk_tpu_torch, ratatosk_tpu_torch.correct.engine\n"
             "import ratatosk_tpu_torch.pipeline, ratatosk_tpu_torch.testing\n"
-            "import ratatosk_tpu_torch.ops.sprint\n"
+            "import ratatosk_tpu_torch.ops.sprint, ratatosk_tpu_torch.cli\n"
+            "import ratatosk_tpu_torch.ops.plan_device\n"
+            "import ratatosk_tpu_torch.ops.hash_index\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'ratatosk_tpu.')))\n"
             "assert not bad, bad\n")

@@ -1,0 +1,343 @@
+"""The port's device planner (ratatosk_tpu_torch/ops/plan_device.py) on the
+CPU, after tests/test_plan_device.py: its runs and seeds equal the host
+planner's (correct/seeds.py) and the JAX planner's, its hash probe equals
+the sorted-key lookup, its 128-bit and hash helpers equal a Python-int
+oracle and the JAX helpers over edge values, and a Corrector that plans on
+the device writes what the host planner writes, also when a batch overflows
+its caps and falls back to the host. Cases marked `cuda` run the planner on
+the card; JAX is imported inside the tests that use it, so they also run
+where JAX is not installed:
+    python -m pytest --noconftest -m cuda tests/test_torch_plan_device.py
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from ratatosk_tpu_torch.config import CorrectOpt as TOpt
+from ratatosk_tpu_torch.correct.engine import Corrector as TCorrector
+from ratatosk_tpu_torch.correct.seeds import find_runs, find_weak_seeds_batch
+from ratatosk_tpu_torch.graph import build as TB
+from ratatosk_tpu_torch.graph.colors import color_graph
+from ratatosk_tpu_torch.graph.keys import KeyArray
+from ratatosk_tpu_torch.ops import hash_index as HX
+from ratatosk_tpu_torch.ops import kmers as K
+from ratatosk_tpu_torch.ops import u128 as U
+from ratatosk_tpu_torch.ops.plan_device import DevicePlanner
+from ratatosk_tpu_torch.testing import noisy_read, random_genome, short_reads
+
+CPU = torch.device("cpu")
+M64 = (1 << 64) - 1
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and the tensors here are small."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _mk(k: int, glen: int = 20000, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    genome = random_genome(rng, glen, repeat_frac=0.1, repeat_len=120)
+    sreads = short_reads(rng, genome, coverage=25.0)
+    return rng, genome, sreads, TB.build_cdbg(sreads, k, min_count=2)
+
+
+def _key(r):
+    return (r.s, r.e, r.uid, r.direction, r.o_s, r.weak, r.rspan)
+
+
+def _keys(lists):
+    return [[_key(x) for x in runs] for runs in lists]
+
+
+def _t(u: np.ndarray, device=CPU) -> torch.Tensor:
+    """uint64 array -> int64 tensor of its bits."""
+    return torch.from_numpy(np.asarray(u, np.uint64).view(np.int64)).to(device)
+
+
+def _u(t: torch.Tensor) -> list:
+    """int64 tensor -> its words as Python ints in [0, 2^64)."""
+    return [v & M64 for v in t.cpu().tolist()]
+
+
+# ---- hash-directory probe ----
+
+@pytest.mark.parametrize("k", [31, 63])
+def test_hash_probe_matches_sorted_find(k):
+    rng, _, _, cdbg = _mk(k)
+    hx = HX.HashKmerIndex.build(cdbg.index, CPU)
+    idx = cdbg.index
+    keys = KeyArray(k, idx.keys_lo, idx.keys_hi if idx.two_word else None)
+    rows = rng.integers(0, idx.n, 500)
+    q = np.concatenate([idx.keys_lo[rows],
+                        rng.integers(0, 1 << 62, 500).astype(np.uint64)])
+    qh = None
+    if idx.two_word:
+        qh = np.concatenate([idx.keys_hi[rows],
+                             rng.integers(0, 1 << 60, 500).astype(np.uint64)])
+    want = keys.find(KeyArray(k, q, qh))
+    got = HX.probe_rows(hx, _t(q), None if qh is None else _t(qh))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[:500] >= 0).all()
+
+
+@pytest.mark.parametrize("k", [31, 63])
+def test_prefilter_bitmap_no_false_negatives(k):
+    _, _, _, cdbg = _mk(k, glen=8000)
+    tbl, bits = HX.make_prefilter_bitmap(cdbg.index, CPU)
+    idx = cdbg.index
+    if idx.two_word:
+        orients = [(idx.keys_lo, idx.keys_hi),
+                   K.revcomp_kmer2(idx.keys_hi, idx.keys_lo, k, np)[::-1]]
+    else:
+        orients = [(idx.keys_lo, None),
+                   (K.revcomp_kmer(idx.keys_lo, k, np), None)]
+    for lo, hi in orients:        # both orientations must be present
+        h = HX.hash_key64(_t(lo), None if hi is None else _t(hi))
+        assert HX.prefilter_test(tbl, bits, h).all()
+
+
+# ---- 128-bit and hash helpers against a Python-int oracle ----
+
+EDGE = np.array([0, 1, 3, 0x7FFFFFFFFFFFFFFF, 0x8000000000000000,
+                 0xC000000000000003, 0xFFFFFFFFFFFFFFFF, 0xFFFFFFFF00000000,
+                 0x123456789ABCDEF0, 0xF0E1D2C3B4A59687], np.uint64)
+SHIFTS = [0, 1, 2, 31, 32, 62, 63, 64, 65, 126, 127, 128]
+
+
+def _pairs():
+    hi = np.repeat(EDGE, len(EDGE))
+    lo = np.tile(EDGE, len(EDGE))
+    return hi, lo, [(int(h) << 64) | int(v) for h, v in zip(hi, lo)]
+
+
+def _split128(vals):
+    return ([(v >> 64) & M64 for v in vals], [v & M64 for v in vals])
+
+
+@pytest.mark.parametrize("s", SHIFTS)
+def test_u128_shifts_match_oracle(s):
+    hi, lo, vals = _pairs()
+    m128 = (1 << 128) - 1
+    for fn, ref in ((U.shr128, lambda v: v >> s),
+                    (U.shl128, lambda v: (v << s) & m128)):
+        gh, gl = fn(_t(hi), _t(lo), s)
+        assert (_u(gh), _u(gl)) == _split128([ref(v) for v in vals])
+    assert _u(U.shr64(_t(lo), s)) == [int(v) >> s for v in lo]
+    assert _u(U.shl64(_t(lo), s)) == [(int(v) << s) & M64 for v in lo]
+    mh, ml = U.mask128(s)
+    assert (mh & M64, ml & M64) == ((((1 << s) - 1) >> 64) & M64,
+                                    ((1 << s) - 1) & M64)
+
+
+def _base(v, m, p):
+    return (v >> (2 * (m - 1 - p))) & 3
+
+
+@pytest.mark.parametrize("m", [30, 31, 32, 33, 62, 63, 64])
+def test_u128_base_surgery_matches_oracle(m):
+    """get/set/drop/insert of a base in m-base windows: the Python-int
+    oracle, and the JAX helpers on the same uint64 words."""
+    from ratatosk_tpu.ops import u128 as JU
+    hi, lo, vals = _pairs()
+    vals = [v & ((1 << (2 * m)) - 1) for v in vals]
+    hi, lo = (np.array(x, np.uint64) for x in _split128(vals))
+    th, tl = _t(hi), _t(lo)
+    for p in sorted({0, 1, m // 2, m - 2, m - 1}):
+        s = 2 * (m - 1 - p)
+        assert _u(U.get_base(th, tl, m, p)) == [_base(v, m, p) for v in vals]
+        for b in range(4):
+            want = [(v & ~(3 << s)) | (b << s) for v in vals]
+            gh, gl = U.set_base(th, tl, m, p, b)
+            assert (_u(gh), _u(gl)) == _split128(want)
+            jh, jl = JU.set_base(hi, lo, m, p, b)
+            assert (_u(gh), _u(gl)) == (np.asarray(jh).tolist(),
+                                        np.asarray(jl).tolist())
+            t = s + 2       # bits of bases p..m-1
+            want = [(((v >> t) << (t + 2)) | (b << t) | (v & ((1 << t) - 1)))
+                    & ((1 << 128) - 1) for v in vals]
+            gh, gl = U.insert_base(th, tl, m, p, b)
+            assert (_u(gh), _u(gl)) == _split128(want)
+            jh, jl = JU.insert_base(hi, lo, m, p, b)
+            assert (_u(gh), _u(gl)) == (np.asarray(jh).tolist(),
+                                        np.asarray(jl).tolist())
+        want = [((v >> (s + 2)) << s) | (v & ((1 << s) - 1)) for v in vals]
+        gh, gl = U.drop_base(th, tl, m, p)
+        assert (_u(gh), _u(gl)) == _split128(want)
+        jh, jl = JU.drop_base(hi, lo, m, p)
+        assert (_u(gh), _u(gl)) == (np.asarray(jh).tolist(),
+                                    np.asarray(jl).tolist())
+
+
+def test_hash_helpers_match_jax():
+    from ratatosk_tpu.ops import hash_index as JHX
+    w = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 0x811C9DC5,
+                  0x01000193, 0xDEADBEEF], np.uint32)
+    a, b = np.repeat(w, len(w)), np.tile(w, len(w))
+    ta, tb = (torch.from_numpy(x.astype(np.int64)) for x in (a, b))
+    want2 = JHX.hash_words(a, b, xp=np)
+    want4 = JHX.hash_words(a, b, b, a, xp=np)
+    assert HX.hash_words(ta, tb).tolist() == want2.tolist()
+    assert HX.hash_words(ta, tb, tb, ta).tolist() == want4.tolist()
+    # the host build runs the same code on NumPy int64 words
+    assert HX.hash_words(a.astype(np.int64), b.astype(np.int64)).tolist() \
+        == want2.tolist()
+    x = np.repeat(EDGE, len(EDGE))
+    y = np.tile(EDGE, len(EDGE))
+    for got, want in zip(HX.split64(_t(x)), JHX.split64(x)):
+        assert got.tolist() == want.tolist()
+    assert HX.hash_key64(_t(x), _t(y)).tolist() == \
+        JHX.hash_key64(x, y, np).tolist()
+    assert HX.hash_key64(_t(x)).tolist() == JHX.hash_key64(x, None, np).tolist()
+
+
+# ---- runs and probe against the host planner and the JAX planner ----
+
+@pytest.mark.parametrize("k", [31, 63])
+def test_device_runs_match_host(k):
+    rng, genome, _, cdbg = _mk(k)
+    dp = DevicePlanner.build(cdbg, CPU)
+    reads = [noisy_read(rng, genome, int(rng.integers(0, len(genome) - 1500)),
+                        1500, err=0.08)[0] for _ in range(12)]
+    reads.append(np.zeros(5, np.uint8))          # shorter than k
+    got = dp.collect_runs(dp.dispatch_runs(reads))
+    assert got is not None
+    assert _keys(got) == _keys([find_runs(cdbg, r) for r in reads])
+    from ratatosk_tpu.ops.plan_device import DevicePlanner as JDevicePlanner
+    jdp = JDevicePlanner.build(cdbg)
+    assert _keys(got) == _keys(jdp.collect_runs(jdp.dispatch_runs(reads)))
+
+
+@pytest.mark.parametrize("k,stride,nes", [(31, 1, 16), (31, 2, 0),
+                                          (63, 2, 16)])
+def test_device_probe_matches_host(k, stride, nes):
+    rng, genome, _, cdbg = _mk(k, glen=30000, seed=3)
+    dp = DevicePlanner.build(cdbg, CPU)
+    reads, spans = [], []
+    for i in range(8):
+        start = int(rng.integers(0, len(genome) - 2000))
+        reads.append(noisy_read(rng, genome, start, 2000, err=0.12)[0])
+        spans.append((i, 100, 1900))
+    got = dp.collect_probe(dp.dispatch_probe(
+        reads, spans, stride=stride, near_exact_skip=nes))
+    assert got is not None and dp.n_fallback == 0
+    assert _keys(got) == _keys(find_weak_seeds_batch(
+        cdbg, reads, spans, stride=stride, near_exact_skip=nes))
+    assert sum(r.rspan != k for s in got for r in s) > 0   # indel seeds too
+    from ratatosk_tpu.ops.plan_device import DevicePlanner as JDevicePlanner
+    jdp = JDevicePlanner.build(cdbg)
+    want = jdp.collect_probe(jdp.dispatch_probe(
+        reads, spans, stride=stride, near_exact_skip=nes))
+    assert _keys(got) == _keys(want)
+    # same counts at every phase: allowed, max qualifying, survivors, seeds
+    assert dp.last_stats.tolist() == np.asarray(jdp.last_stats).tolist()
+
+
+def test_build_declines_huge_index():
+    """Past ~3.5e8 keys the int32 placement identity would overflow: no
+    planner, and the host planner serves the index."""
+    big = types.SimpleNamespace(index=types.SimpleNamespace(n=400_000_000))
+    assert DevicePlanner.build(big, CPU) is None
+
+
+# ---- Corrector(plan_on_device=True) ----
+
+@pytest.fixture(scope="module")
+def toy():
+    """tests/test_correct_e2e.py's repetitive genome, a graph and reads."""
+    rng = np.random.default_rng(101)
+    genome = random_genome(rng, 15000, repeat_frac=0.2, repeat_len=200)
+    sreads = short_reads(rng, genome, coverage=40.0, read_len=120)
+    reads = [noisy_read(rng, genome, int(rng.integers(0, 15000 - 2500)),
+                        2500, err=0.10)[0] for _ in range(4)]
+    cdbg = TB.build_cdbg(sreads, 21, min_count=2)
+    return sreads, reads, cdbg, color_graph(cdbg, sreads)
+
+
+def _opt(Opt, **kw):
+    # a read batch of 20 kbp keeps the planner's pad tier at its floor
+    return Opt(small_k=21, k=63, beam_width=8, batch_regions=32,
+               weak_seed_min_gap=100, read_batch_bp=20000, **kw)
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.codes, w.codes)
+        np.testing.assert_array_equal(g.qual, w.qual)
+
+
+def test_corrector_plan_on_device_matches_host(toy):
+    sreads, reads, cdbg, colors = toy
+    host = TCorrector(cdbg, colors, _opt(TOpt), device=CPU)
+    dev = TCorrector(cdbg, colors, _opt(TOpt, plan_on_device=True),
+                     device=CPU)
+    assert host.devplan is None and dev.devplan is not None
+    dev.warmup_compile()
+    want = host.correct_batch(reads)
+    got = dev.correct_batch(reads)
+    _same(got, want)
+    assert dev.devplan.n_fallback == 0
+    assert dev.devplan.last_stats[3] > 0          # the probe found seeds
+    from ratatosk_tpu.config import CorrectOpt as JOpt
+    from ratatosk_tpu.correct.engine import Corrector as JCorrector
+    from ratatosk_tpu.graph import build as JB
+    from ratatosk_tpu.graph.colors import color_graph as j_color_graph
+    jc = JB.build_cdbg(sreads, 21, min_count=2)
+    _same(got, JCorrector(jc, j_color_graph(jc, sreads),
+                          _opt(JOpt, plan_on_device=True)).correct_batch(reads))
+
+
+def test_cap_overflow_falls_back_to_host(toy):
+    """A batch whose qualifying positions overflow the cap is planned on the
+    host, counted in n_fallback, and corrects to the same output."""
+    _, reads, cdbg, colors = toy
+    want = TCorrector(cdbg, colors, _opt(TOpt), device=CPU).correct_batch(reads)
+    dev = TCorrector(cdbg, colors, _opt(TOpt, plan_on_device=True),
+                     device=CPU)
+    dev.devplan._qcap = lambda L: 8
+    got = dev.correct_batch(reads)
+    assert dev.devplan.n_fallback == 1
+    _same(got, want)
+
+
+# ---- on the card ----
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs the planner on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 63])
+def test_planner_on_card_matches_host(cuda_device, k):
+    rng, genome, _, cdbg = _mk(k, glen=30000, seed=3)
+    dp = DevicePlanner.build(cdbg, cuda_device)
+    assert dp.hx.key_tbl.is_cuda
+    reads = [noisy_read(rng, genome, int(rng.integers(0, len(genome) - 2000)),
+                        2000, err=0.12)[0] for _ in range(8)]
+    spans = [(i, 100, 1900) for i in range(8)]
+    assert _keys(dp.collect_runs(dp.dispatch_runs(reads))) == \
+        _keys([find_runs(cdbg, r) for r in reads])
+    got = dp.collect_probe(dp.dispatch_probe(reads, spans, stride=2,
+                                             near_exact_skip=16))
+    assert _keys(got) == _keys(find_weak_seeds_batch(
+        cdbg, reads, spans, stride=2, near_exact_skip=16))
+
+
+@pytest.mark.cuda
+def test_corrector_plan_on_device_on_card(cuda_device, toy):
+    _, reads, cdbg, colors = toy
+    want = TCorrector(cdbg, colors, _opt(TOpt), device=CPU).correct_batch(reads)
+    dev = TCorrector(cdbg, colors, _opt(TOpt, plan_on_device=True),
+                     device=cuda_device)
+    _same(dev.correct_batch(reads), want)
+    assert dev.devplan.n_fallback == 0
