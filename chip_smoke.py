@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch + CUDA port (ratatosk_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                      # full size, as documented below
-    python3 chip_smoke.py --genome-bp 200000 --long-reads 16   # a quick run
+    python3 chip_smoke.py --genome-bp 300000 --long-reads 16   # a quick run
+    python3 chip_smoke.py --mesh-only   # phases 1-4, 9 and 10 only: the
+                                        # check on a host with several cards
 
 Phases, one line each (any failure raises, and the script exits non-zero):
   1. environment: torch, CUDA, nvcc, the card's name and power limit, and
@@ -33,14 +35,35 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      edge rescue on), through cli.main(..., device="cuda"). The kernel must
      launch, every read come out in order, and the sampled error fall below
      a fifth of the raw error;
-  8. [index] `index -1` on the same data, the index's load and save timed on
-     their own, then `correct -g <prefix>.index.k31.npz -1`: the files must
-     exist, the kernel launch and the sampled error fall below raw/5. How
-     many reads differ from the [cli] run's pass 1 is printed, not checked
-     (a saved index drops the colors' full CSR, which SNP detection reads).
+  8. [index] `index -1` on the first half of the short reads (20x; the
+     depth cut that keeps the script well inside its time limit), the
+     index's load and save timed on their own, then `correct -g
+     <prefix>.index.k31.npz -1` on all the long reads: the files must exist,
+     the kernel launch and the sampled error fall below raw/5. How many
+     reads differ from the [cli] run's pass 1 is printed, not checked (the
+     index holds half the short reads, and a saved index drops the colors'
+     full CSR, which SNP detection reads).
+  9. [mesh] both passes of the slice on all its long reads with
+     Corrector(..., mesh=...) on the slice's graphs (2 threads): slots are
+     cuda:0..n-1 with 2 or more cards, else [cuda:0, cuda:0] (two slots on
+     one card). Both FASTQ files must equal the slice's byte for byte, and
+     every slot must launch the kernel;
+ 10. [sharded] ShardedKmerIndex over the same slots on the slice's k=31 and
+     k=63 indexes: one read batch's canonical k-mers, absent keys with bit
+     63 set and the all-ones key must get the host index's answers
+     (KeyArray.find), timed per batch; then both passes with
+     shard_index_min_keys=0 (anchor lookups through the sharded index),
+     byte-identical to the slice;
+ 11. [dist] the multi-host launcher in two processes on the [cli] phase's
+     inputs, both on cuda:0, joined by gloo on a free localhost port:
+     `python -m ratatosk_tpu_torch.distributed_correct --coordinator ...
+     --num-processes 2 --process-id i -- <the [cli] flags>`. The final
+     FASTQ must equal the [cli] run's byte for byte, both index .npz files
+     exist, and each process's kernel must launch.
 Launch counts are reset just before each path (the slice, the 16-read
-planner run, the [cli] run, the -g run) and read just after; the kernels'
-record sums them.
+planner run, the mesh and sharded runs, the [cli] run, the -g run; each
+[dist] process counts its own) and read just after; the kernels' record
+sums them.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -302,8 +325,9 @@ def run_slice(device, glen: int, n_reads: int, workdir: str, smi: str = ""):
         f"{total_bases / dt:.1f} corrected bases/s on {smi or device}")
     return dict(launches=launches, times=times, bases=total_bases,
                 bases_per_s=total_bases / dt, raw_err=raw, p1_err=mid,
-                p2_err=cor, corr1=corr1, corr2=corr2, o1=o1, truth=truth,
-                sreads=sreads, lr_path=lr_path, p1_path=p1_path)
+                p2_err=cor, corr1=corr1, corr2=corr2, o1=o1, o2=o2,
+                truth=truth, sreads=sreads, lr_path=lr_path, p1_path=p1_path,
+                p2_path=p2_path)
 
 
 def phase_plain_vs_kernel(device, sl: dict, workdir: str, n: int = 16):
@@ -460,11 +484,232 @@ def phase_devplan(device, sl: dict, workdir: str, head: str,
     return launches
 
 
-def _write_short_fasta(sreads, path: str) -> None:
+def make_slots(torch):
+    """cuda:0..n-1 with two or more cards, else two slots on cuda:0."""
+    from ratatosk_tpu_torch.parallel import mesh as M
+    n = torch.cuda.device_count()
+    devs = ([torch.device("cuda", i) for i in range(n)] if n >= 2
+            else [torch.device("cuda", 0)] * 2)
+    how = (f"{n} cards, one slot each" if n >= 2
+           else "one card, two slots (streams) on cuda:0")
+    return M.make_mesh(devices=devs), how
+
+
+def _reset_launches():
+    from ratatosk_tpu_torch.ops import sprint as SP
+    SP.sprint_rows.launches = 0
+    SP.sprint_rows.launches_by_stream.clear()
+
+
+def _mesh_passes(tag: str, sl: dict, workdir: str, mesh, **opt_kw):
+    """Both passes of the slice on `mesh`; the FASTQ files must equal the
+    slice's. Returns (launches, per-slot launches, pass seconds)."""
+    import dataclasses
+    import torch
+    from ratatosk_tpu_torch.correct.engine import Corrector
+    from ratatosk_tpu_torch.ops import sprint as SP
+    from ratatosk_tpu_torch.pipeline import correct_file
+    o1 = dataclasses.replace(sl["o1"], **opt_kw)
+    o2 = dataclasses.replace(sl["o2"], **opt_kw)
+    c1, c2 = sl["corr1"], sl["corr2"]
+    corr1 = Corrector(c1.cdbg, c1.colors, o1, mesh=mesh)
+    corr1.warmup_compile()
+    corr2 = Corrector(c2.cdbg, c2.colors, o2, mesh=mesh)
+    if opt_kw.get("shard_index_min_keys") == 0 and (
+            corr1.sharded is None or corr2.sharded is None):
+        raise AssertionError(f"[{tag}] the sharded index is not in use")
+    secs = {}
+    _reset_launches()
+    torch.cuda.synchronize()
+    for p, corr, o, src, ref in ((1, corr1, o1, sl["lr_path"], sl["p1_path"]),
+                                 (2, corr2, o2, sl["p1_path"], sl["p2_path"])):
+        out = os.path.join(workdir, f"{tag}.p{p}.fastq")
+        t = time.time()
+        correct_file(corr, o, [src], out, p)
+        torch.cuda.synchronize()
+        secs[p] = time.time() - t
+        if Path(out).read_bytes() != Path(ref).read_bytes():
+            raise AssertionError(f"[{tag}] pass-{p} FASTQ differs from the "
+                                 "single-device slice's")
+    per_slot = [SP.sprint_rows.launches_by_stream.get(
+        mesh.stream(i).cuda_stream, 0) for i in range(mesh.size)]
+    launches = SP.sprint_rows.launches
+    if min(per_slot) <= 0:
+        raise AssertionError(f"[{tag}] a slot never launched the kernel: "
+                             f"{per_slot}")
+    return launches, per_slot, secs
+
+
+def phase_mesh(sl: dict, workdir: str, mesh, how: str):
+    """Both passes through Corrector(mesh=...), against the slice."""
+    launches, per_slot, secs = _mesh_passes("mesh", sl, workdir, mesh)
+    t = sl["times"]
+    log(f"[mesh] {mesh} ({how}): pass 1 {secs[1]:.1f}s (slice "
+        f"{t['p1_correct']:.1f}s), pass 2 {secs[2]:.1f}s (slice "
+        f"{t['p2_correct']:.1f}s); both FASTQ files byte-identical to the "
+        f"slice's; kernel launches per slot {per_slot} ({launches} in all)")
+    return launches
+
+
+def _batch_queries(reads, k, rng):
+    """Canonical k-mers of a read batch, then 1,000 absent keys with bit 63
+    set in lo and the all-ones key. Returns (q_lo, q_hi or None)."""
+    import numpy as np
+    from ratatosk_tpu_torch.graph.keys import KeyArray
+    los, his = [], []
+    for r in reads:
+        ka, valid = KeyArray.from_codes(r, k)
+        can, _ = ka.canonical()
+        los.append(can.lo[valid])
+        if can.hi is not None:
+            his.append(can.hi[valid])
+    ones = np.array([0xFFFFFFFFFFFFFFFF], np.uint64)
+    los += [rng.integers(0, 1 << 62, 1000).astype(np.uint64)
+            | np.uint64(1 << 63), ones]
+    if not his:
+        return np.concatenate(los), None
+    his += [rng.integers(0, 1 << 61, 1000).astype(np.uint64), ones]
+    return np.concatenate(los), np.concatenate(his)
+
+
+def phase_sharded(sl: dict, workdir: str, mesh):
+    """ShardedKmerIndex lookups against the host index, then both passes
+    with every anchor lookup through it."""
+    import numpy as np
+    import torch
+    from ratatosk_tpu_torch.graph.keys import KeyArray
+    from ratatosk_tpu_torch.parallel.sharded_index import ShardedKmerIndex
+    rng = np.random.default_rng(SEED + 2)
+    ms_all = {}
+    for name, corr, path in (("k31", sl["corr1"], sl["lr_path"]),
+                             ("k63", sl["corr2"], sl["p1_path"])):
+        idx = corr.cdbg.index
+        t = time.time()
+        sh = ShardedKmerIndex(idx, mesh)
+        torch.cuda.synchronize()
+        t_build = time.time() - t
+        reads = _first_batch(path, sl["o1"].read_batch_bp)
+        q_lo, q_hi = _batch_queries(reads, idx.k, rng)
+        rows = KeyArray(idx.k, idx.keys_lo, idx.keys_hi).find(
+            KeyArray(idx.k, q_lo, q_hi))
+        hit = rows >= 0
+        uid, pos, strand = (t.cpu().numpy() for t in sh.lookup(q_lo, q_hi))
+        ok = (np.array_equal(uid >= 0, hit)
+              and np.array_equal(uid[hit], idx.unitig_id[rows[hit]])
+              and np.array_equal(pos[hit], idx.pos[rows[hit]])
+              and np.array_equal(strand[hit],
+                                 idx.strand[rows[hit]].astype(np.int32)))
+        if not ok:
+            raise AssertionError(f"[sharded] {name}: lookups differ from the "
+                                 "host index's")
+        ms = []
+        for _ in range(3):
+            t = time.time()
+            [x.cpu() for x in sh.lookup(q_lo, q_hi)]
+            ms.append(1000 * (time.time() - t))
+        ms_all[name] = ms
+        log(f"[sharded] {name}: {idx.n} keys over {mesh.size} slots "
+            f"({sh.per} per shard, built in {t_build:.2f}s); {len(q_lo)} "
+            f"queries ({int(hit.sum())} present, 1,001 absent incl. bit-63 "
+            f"and all-ones keys) equal the host index's; ms per batch "
+            f"(upload, search, read-back): "
+            f"{', '.join(f'{x:.1f}' for x in ms)}")
+    launches, per_slot, secs = _mesh_passes("sharded", sl, workdir, mesh,
+                                            shard_index_min_keys=0)
+    t = sl["times"]
+    log(f"[sharded] both passes with shard_index_min_keys=0: pass 1 "
+        f"{secs[1]:.1f}s (slice {t['p1_correct']:.1f}s), pass 2 "
+        f"{secs[2]:.1f}s (slice {t['p2_correct']:.1f}s); byte-identical to "
+        f"the slice; kernel launches per slot {per_slot} ({launches} in all)")
+    return launches
+
+
+_DIST_RUNNER = r"""
+import sys
+from ratatosk_tpu_torch import distributed_correct
+from ratatosk_tpu_torch.ops import sprint
+pid, port = sys.argv[1], sys.argv[2]
+argv = ["--coordinator", f"localhost:{port}", "--num-processes", "2",
+        "--process-id", pid, "--"] + sys.argv[3:]
+assert distributed_correct.main(argv, device="cuda") == 0
+print("sprint_launches", sprint.sprint_rows.launches, flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist(sl: dict, workdir: str, short_fa: str, cli_out: str):
+    """Two processes through the multi-host launcher on the [cli] inputs."""
+    from ratatosk_tpu_torch.graph import io as GIO
+    out = os.path.join(workdir, "dist")
+    argv = ["-s", short_fa, "-l", sl["lr_path"], "-o", out, "-c", "2",
+            "--devices", "1", "-v"]
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs, errs = [], []
+    t = time.time()
+    try:
+        for pid in range(2):
+            trace = os.path.join(workdir, f"dist.trace{pid}.jsonl")
+            errs.append(open(os.path.join(workdir, f"dist.err{pid}"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _DIST_RUNNER, str(pid), str(port),
+                 *argv, "--trace-json", trace],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=errs[-1],
+                text=True))
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.time() - t
+    for pid, (p, e) in enumerate(zip(procs, errs)):
+        e.seek(0)
+        err = e.read()
+        e.close()
+        if p.returncode != 0:
+            raise AssertionError(f"[dist] process {pid} exited "
+                                 f"{p.returncode}:\n{err[-4000:]}")
+    launches = [int(o.strip().splitlines()[-1].split()[1]) for o in outs]
+    if min(launches) <= 0:
+        raise AssertionError(f"[dist] a process never launched the kernel: "
+                             f"{launches}")
+    if Path(out + ".fastq").read_bytes() != Path(cli_out + ".fastq") \
+            .read_bytes():
+        raise AssertionError("[dist] final FASTQ differs from the [cli] run's")
+    for k in (31, 63):
+        if not os.path.getsize(GIO.index_path(out, k)):
+            raise AssertionError(f"[dist] {GIO.index_path(out, k)} is empty")
+    steps = []
+    for pid in range(2):
+        evs = _trace(os.path.join(workdir, f"dist.trace{pid}.jsonl"))
+        passes = {e["pass_no"]: e["secs"] for e in evs
+                  if e["ev"] == "pass_done"}
+        snp = [e["secs"] for e in evs if e["ev"] == "snp"]
+        steps.append(f"process {pid}: pass 1 {passes[1]:.1f}s, pass 2 "
+                     f"{passes[2]:.1f}s, SNP detection "
+                     f"{' / '.join(f'{x:.1f}' for x in snp)}s")
+    log(f"[dist] 2 processes on cuda:0 (gloo, localhost:{port}): "
+        f"{wall:.1f}s wall; {'; '.join(steps)}; final FASTQ byte-identical "
+        f"to the [cli] run's; index .npz k31/k63 written; kernel launches "
+        f"{launches}")
+    return sum(launches)
+
+
+def _write_short_fasta(sreads, path: str, half_path: str) -> None:
+    """Every short read to `path`, the first half also to `half_path`."""
     from ratatosk_tpu_torch import dna
-    with open(path, "w") as f:
+    with open(path, "w") as f, open(half_path, "w") as h:
         for i, r in enumerate(sreads):
-            f.write(f">S{i}\n{dna.decode(r)}\n")
+            rec = f">S{i}\n{dna.decode(r)}\n"
+            f.write(rec)
+            if 2 * i < len(sreads):
+                h.write(rec)
 
 
 def _trace(path: str) -> list:
@@ -516,8 +761,9 @@ def phase_cli(sl: dict, workdir: str, short_fa: str, smi: str):
     return dict(launches=launches, out=out)
 
 
-def phase_index(sl: dict, workdir: str, short_fa: str, cli_out: str):
-    """`index -1`, the index's load and save, then `correct -g ... -1`."""
+def phase_index(sl: dict, workdir: str, half_fa: str, cli_out: str):
+    """`index -1` on half the short reads, the index's load and save, then
+    `correct -g ... -1`."""
     import numpy as np
     import torch
     from ratatosk_tpu_torch import cli
@@ -527,7 +773,7 @@ def phase_index(sl: dict, workdir: str, short_fa: str, cli_out: str):
     truth, n_reads = sl["truth"], len(sl["truth"])
     pref = os.path.join(workdir, "idx")
     t = time.time()
-    cli.main(["index", "-s", short_fa, "-l", sl["lr_path"], "-o", pref, "-1",
+    cli.main(["index", "-s", half_fa, "-l", sl["lr_path"], "-o", pref, "-1",
               "-v"])
     t_index = time.time() - t
     npz, fasta = GIO.index_path(pref, 31), IT.fasta_index_path(pref, 31)
@@ -557,7 +803,8 @@ def phase_index(sl: dict, workdir: str, short_fa: str, cli_out: str):
     ref = _check_reads(cli_out + ".2.fastq", n_reads)
     n_diff = sum(not np.array_equal(got[n], ref[n]) for n in got)
     raw, cor = _raw_error(truth), _sampled_error(truth, got)
-    log(f"[index] index -1 in {t_index:.1f}s: {os.path.getsize(npz)} byte "
+    log(f"[index] index -1 on half the short reads in {t_index:.1f}s: "
+        f"{os.path.getsize(npz)} byte "
         f"npz, {os.path.getsize(fasta)} byte unitig FASTA; load "
         f"{t_load:.2f}s, save {t_save:.2f}s")
     log(f"[index] correct -g <npz> -1 in {t_g:.1f}s (pass 1 "
@@ -569,10 +816,29 @@ def phase_index(sl: dict, workdir: str, short_fa: str, cli_out: str):
     return dict(launches=launches)
 
 
+def phase_rest(sl: dict, workdir: str, smi: str, launches: dict) -> None:
+    """[cli], [index] and [dist] on the slice's data; adds their launches."""
+    short_fa = os.path.join(workdir, "short.fa")
+    half_fa = os.path.join(workdir, "short.half.fa")
+    t = time.time()
+    _write_short_fasta(sl.pop("sreads"), short_fa, half_fa)
+    log(f"[cli] wrote {os.path.getsize(short_fa)} bytes of short-read "
+        f"FASTA (and its first half) in {time.time() - t:.1f}s")
+    sl.pop("corr1"), sl.pop("corr2")
+    cl = phase_cli(sl, workdir, short_fa, smi)
+    launches["cli"] = cl["launches"]
+    launches["index_g"] = phase_index(sl, workdir, half_fa,
+                                      cl["out"])["launches"]
+    launches["dist"] = phase_dist(sl, workdir, short_fa, cl["out"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome-bp", type=int, default=4_000_000)
     ap.add_argument("--long-reads", type=int, default=256)
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run the kernels, the slice, [mesh] and [sharded] "
+                    "only (on several cards: one slot per card)")
     args = ap.parse_args(argv)
     if not (ROOT / "ratatosk_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: ratatosk_tpu_torch/ is not beside this script",
@@ -591,19 +857,15 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="ratatosk_smoke_") as workdir:
         sl = run_slice(dev, args.genome_bp, args.long_reads, workdir, smi)
         launches["slice"] = sl["launches"]["sprint_rows"]
-        head, host_fastq = phase_plain_vs_kernel(dev, sl, workdir)
-        launches["devplan"] = phase_devplan(dev, sl, workdir, head,
-                                            host_fastq)
-        short_fa = os.path.join(workdir, "short.fa")
-        t = time.time()
-        _write_short_fasta(sl.pop("sreads"), short_fa)
-        log(f"[cli] wrote {os.path.getsize(short_fa)} bytes of short-read "
-            f"FASTA in {time.time() - t:.1f}s")
-        sl.pop("corr1"), sl.pop("corr2")
-        cl = phase_cli(sl, workdir, short_fa, smi)
-        launches["cli"] = cl["launches"]
-        launches["index_g"] = phase_index(sl, workdir, short_fa,
-                                          cl["out"])["launches"]
+        if not args.mesh_only:
+            head, host_fastq = phase_plain_vs_kernel(dev, sl, workdir)
+            launches["devplan"] = phase_devplan(dev, sl, workdir, head,
+                                                host_fastq)
+        mesh, how = make_slots(torch)
+        launches["mesh"] = phase_mesh(sl, workdir, mesh, how)
+        launches["sharded"] = phase_sharded(sl, workdir, mesh)
+        if not args.mesh_only:
+            phase_rest(sl, workdir, smi, launches)
     torch.cuda.synchronize()
     headline = krows[257]
     log(f"[done] {time.time() - t_all:.1f}s on {smi}")

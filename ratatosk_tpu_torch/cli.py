@@ -3,7 +3,9 @@
 Port of ratatosk_tpu/cli.py. The flag surface mirrors the reference CLI
 (Ratatosk.cpp:149-185; usage text 23-143): same mandatory -s/-l/-o, same
 pass selection -1/-2, same artifacts (`<out>.2.fastq` intermediate,
-`<prefix>.index.k<k>` index files). `correct` runs on one CUDA device.
+`<prefix>.index.k<k>` index files). `correct` runs on the CUDA devices
+that `--devices` names; several hosts run it through
+`python -m ratatosk_tpu_torch.distributed_correct`.
 
 Two deliberate differences from the JAX package's CLI:
 - no `-d/--in-unitig-data`: the `.npz` index given with `-g` already holds
@@ -71,8 +73,8 @@ def _add_common(p: argparse.ArgumentParser, correct_mode: bool) -> None:
                    default=CorrectOpt.batch_regions,
                    help="weak regions per device launch")
     p.add_argument("--devices", type=int, default=0,
-                   help="GPUs to drive (0 = all visible); only one is "
-                        "supported so far")
+                   help="local GPUs to drive (0 = all visible): region "
+                        "batches split over a mesh across them")
     p.add_argument("--auto-subsample", action="store_true",
                    help="coverage-stratified color subsampling when estimated "
                         "coverage >= 10 (addCoverage phase 5); off by default "

@@ -17,16 +17,19 @@ between the best and runner-up candidate path.
 
 Port of ratatosk_tpu/correct/engine.py: the host planning and assembly are
 the reference's code unchanged. The device parts are rewritten for torch:
-`make_region_batch` uploads one tensor per field to the corrector's device,
-`_launch_bucket` runs the beam and the finish bundle eagerly, and
+`_launch_bucket` packs a launch's regions on the host (`region_arrays`),
+uploads one tensor per field, runs the beam and the finish bundle eagerly, and
 `_execute_regions` reads the two result arrays back with `.cpu()`; the
 device planner (`plan_on_device`) runs in plain torch on the same device.
-The multi-device mesh and the sharded index are not ported yet: the
-constructor raises for a mesh.
+With a mesh of several slots (parallel/mesh.py) the graph is replicated per
+device and every launch splits its rows over the slots, each slot on its own
+worker thread and stream; with a mesh and a large index, anchor lookups go
+through the range-sharded index (parallel/sharded_index.py) instead.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time as _time
 from typing import List, Optional, Sequence, Tuple
@@ -47,6 +50,7 @@ from ratatosk_tpu_torch.graph.build import Cdbg
 from ratatosk_tpu_torch.graph.colors import GraphColors
 from ratatosk_tpu_torch.ops import cigar as CG
 from ratatosk_tpu_torch.ops import colorset as CS
+from ratatosk_tpu_torch.parallel import mesh as M
 
 # target-length buckets = jit shapes. Three are enough: <=256 runs the exact
 # full-row DP; longer regions run the fixed-width band, whose per-step cost is
@@ -71,12 +75,14 @@ def _beam_finish(g, rb, qv_max, min_k, *, beam, lmax, min_cov, band, w,
                             min_k, res, w=w, min_score_open=min_score_open)
 
 
-def make_region_batch(specs: List["RegionSpec"], nt: int, color_cap: int, *,
-                      device: torch.device, mirrored: bool = False,
-                      r_pad: Optional[int] = None, len_factor: float = 0.25):
-    """Pack RegionSpecs into a padded RegionBatch on `device`.
+def region_arrays(specs: List["RegionSpec"], nt: int, color_cap: int, *,
+                  mirrored: bool = False, r_pad: Optional[int] = None,
+                  len_factor: float = 0.25):
+    """Pack RegionSpecs into the padded host arrays of a RegionBatch (the
+    reference's make_region_batch before its upload), one per field.
 
-    Returns (RegionBatch, lmax). Padding rows are inert (tgt_len=1, open).
+    Returns (dict of [Rp]-leading arrays, lmax). Padding rows are inert
+    (tgt_len=1, open).
     """
     R = len(specs)
     Rp = r_pad or R
@@ -116,14 +122,13 @@ def make_region_batch(specs: List["RegionSpec"], nt: int, color_cap: int, *,
         f = len_factor * (2.0 if sp.on_cycle else 1.0)
         max_plen[i] = int(np.ceil((1.0 + f) * len(tgt))) + 4
     lmax = int(np.ceil((1.0 + 2.0 * len_factor) * nt)) + 4
-    rb = BM.RegionBatch.from_numpy(dict(
+    return dict(
         tgt_masks=tgt_masks, tgt_len=tgt_len,
         start_tip=start_tip, start_off=start_off,
         end_tip=end_tip, end_off=end_off,
         colors_sig=CS.color_signature(colors),
         colors_wsig=CS.color_signature(colors, weights=weights),
-        max_plen=max_plen, tgt_qual=tgt_qual, end_cyclic=end_cyc), device)
-    return rb, lmax
+        max_plen=max_plen, tgt_qual=tgt_qual, end_cyclic=end_cyc), lmax
 
 
 @dataclasses.dataclass
@@ -203,29 +208,47 @@ class CorrectedRead:
 class Corrector:
     def __init__(self, cdbg: Cdbg, colors: GraphColors,
                  opt: Optional[CorrectOpt] = None, hap=None, snps=None,
-                 mesh=None, *, device, sprint_impl: str = "auto"):
+                 mesh=None, *, device=None, sprint_impl: str = "auto"):
         """device: where the graph lives and every launch runs (given by the
-        caller; nothing falls back to another device). sprint_impl: "auto"
-        runs the beam's sprint substeps through the hand-written kernel on a
-        CUDA device, "torch" through its plain version."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "Corrector(mesh=...) (several GPUs) is not ported to "
-                "ratatosk_tpu_torch yet: ROADMAP.md Queue 1 item 5")
+        caller; nothing falls back to another device); with a mesh it
+        defaults to the mesh's first slot. mesh (parallel.mesh.Mesh): with
+        several slots, every launch splits its rows over them. sprint_impl:
+        "auto" runs the beam's sprint substeps through the hand-written
+        kernel on a CUDA device, "torch" through its plain version."""
+        if device is None and mesh is None:
+            raise TypeError("Corrector needs device= or mesh=")
         self.cdbg = cdbg
         self.colors = colors
         self.opt = opt or CorrectOpt()
         self.hap = hap   # graph.phasing.HapReads or None
         self.snps = snps  # graph.snp.SnpAnnotations or None
-        self.sharded = None   # the sharded index is not ported
-        self.device = torch.device(device)
+        # sharded-index mode: with a mesh and an index past the threshold,
+        # anchor lookups run range-partitioned over the mesh's devices
+        # instead of against the host array (both key widths; pass 2's k=63
+        # index is the one that outgrows a device)
+        self.sharded = None
+        if mesh is not None and cdbg.index.n >= self.opt.shard_index_min_keys:
+            from ratatosk_tpu_torch.parallel.sharded_index import \
+                ShardedKmerIndex
+            self.sharded = ShardedKmerIndex(cdbg.index, mesh)
+        self.device = (torch.device(device) if device is not None
+                       else mesh.devices[0])
         self.sprint_impl = sprint_impl
         self.g = DeviceGraph.from_host(cdbg, colors, self.device)
+        # multi-device execution: with a mesh of several slots the graph is
+        # replicated per device and every region batch splits over the
+        # slots (parallel/mesh.py), the reference's per-node fan-out
+        # (Ratatosk.nf:139-164)
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        self.replicas = None
+        if self.mesh is not None:
+            self.replicas = M.replicate_graph(self.g, self.mesh)
         # device batch planner (anchor lookup + 1-edit probe as async device
         # work, ops/plan_device.py); None past its index-size limit, where
-        # the host planner serves the index
+        # the host planner serves the index. Exclusive with the sharded
+        # mode, which serves lookups range-partitioned instead
         self.devplan = None
-        if self.opt.plan_on_device:
+        if self.sharded is None and self.opt.plan_on_device:
             from ratatosk_tpu_torch.ops.plan_device import DevicePlanner
             self.devplan = DevicePlanner.build(cdbg, self.device)
         self.nk = cdbg.nkmers
@@ -244,7 +267,9 @@ class Corrector:
         self._splice_pending: list = []
         self.qv_max = self.opt.max_qual
         self._cur_hap = -1   # haplotype of the read being planned
-        # wall-time breakdown (seconds), for bench/verbose reporting
+        # wall-time breakdown (seconds), for bench/verbose reporting. With a
+        # mesh, "launch" is the queueing of the slots' work and "finish"
+        # includes waiting for it
         self.timers = {"plan": 0.0, "launch": 0.0, "finish": 0.0}
 
     # ---------- helpers ----------
@@ -599,10 +624,11 @@ class Corrector:
 
         def probe(can, valid):
             hi = np.asarray(can.hi) if sh.two_word else None
-            uid, pos, strand = sh.lookup(np.asarray(can.lo), hi)
-            uid = np.asarray(uid).copy()
+            uid, pos, strand = (t.cpu().numpy() for t in
+                                sh.lookup(np.asarray(can.lo), hi))
+            uid = uid.copy()
             uid[~valid] = -1
-            return uid, np.asarray(pos), np.asarray(strand).astype(bool)
+            return uid, pos, strand.astype(bool)
 
         return probe
 
@@ -687,7 +713,11 @@ class Corrector:
     # ---------- device execution ----------
 
     def _launch_bucket(self, specs: List[RegionSpec], nt: int, mirrored: bool,
-                       beam: Optional[int] = None):
+                       beam: Optional[int] = None, pool=None):
+        """One launch, queued: returns (read, lmax), where read() waits for
+        it and gives its (scalars, seq_packed) as NumPy, covering at least
+        the launch's real rows. With a mesh the rows split over the slots of
+        `pool` (parallel.mesh.SlotPool), each run on its own thread."""
         # pad R to a power-of-two tier in [128, batch_regions], as the
         # reference does, so both packages launch the same shapes. Padding
         # rows are inert (tgt_len=1, max_plen=1) and freeze on the first step.
@@ -695,25 +725,43 @@ class Corrector:
         Rp = 1 << int(np.ceil(np.log2(max(R, 1))))
         Rp = min(Rp, self.opt.batch_regions)
         Rp = max(Rp, min(128, self.opt.batch_regions))
-        rb, lmax = make_region_batch(
-            specs, nt, self.colors.cap, device=self.device, mirrored=mirrored,
-            r_pad=Rp, len_factor=self.opt.weak_region_len_factor)
+        if self.mesh is not None:
+            nd = self.mesh.size
+            Rp = ((Rp + nd - 1) // nd) * nd
+        arrays, lmax = region_arrays(
+            specs, nt, self.colors.cap, mirrored=mirrored, r_pad=Rp,
+            len_factor=self.opt.weak_region_len_factor)
         # band must absorb the path-vs-read indel drift, which grows with
         # region length (~2-3% of NT at ONT error rates) — scale it
         band = 0 if nt <= 256 else max(self.opt.band_width, nt // 16)
-        fin = _beam_finish(
-            self.g, rb, self.qv_max, self.cdbg.k,
-            beam=beam or self.opt.beam_width, lmax=lmax,
-            min_cov=self.opt.min_cov_vertices, band=band, w=band,
-            min_score_open=self.opt.min_score_open_region,
-            sprint_impl=self.sprint_impl)
-        return fin, lmax
+        kw = dict(beam=beam or self.opt.beam_width, lmax=lmax,
+                  min_cov=self.opt.min_cov_vertices, band=band, w=band,
+                  min_score_open=self.opt.min_score_open_region,
+                  sprint_impl=self.sprint_impl)
+        def host(fin):
+            return fin.scalars.cpu().numpy(), fin.seq_packed.cpu().numpy()
+
+        if self.mesh is None:
+            rb = BM.RegionBatch.from_numpy(arrays, self.device)
+            fin = _beam_finish(self.g, rb, self.qv_max, self.cdbg.k, **kw)
+            return (lambda: host(fin)), lmax
+
+        def slot(dev, rows):
+            # upload, launch and read-back on the slot's thread and stream
+            rb = BM.RegionBatch.from_numpy(
+                {f: a[rows] for f, a in arrays.items()}, dev)
+            return host(_beam_finish(self.replicas[dev], rb, self.qv_max,
+                                     self.cdbg.k, **kw))
+
+        futs = pool.submit_rows(Rp, slot, n_real=R)
+        return (lambda: M.gather(futs)), lmax
 
     def warmup_compile(self) -> None:
         """Build the kernel library before the timed run (nvcc at first use;
         PyTorch itself compiles nothing), and pin the device planner's pad
         tier at the production batch size."""
-        if self.device.type == "cuda" and self.sprint_impl == "auto":
+        devs = self.mesh.devices if self.mesh is not None else [self.device]
+        if self.sprint_impl == "auto" and any(d.type == "cuda" for d in devs):
             from ratatosk_tpu_torch.ops import sprint
             sprint.build_library()
         if self.devplan is not None:
@@ -740,49 +788,55 @@ class Corrector:
                 return len(sp.mirror_tgt)
             return len(sp.tgt)
 
-        while pending:
-            by_bucket: dict = {}
-            for i, mirrored, rnd in pending:
-                ln = tgt_len(i, mirrored)
-                nt = next((b for b in BUCKETS if ln <= b), None)
-                if nt is None:
-                    continue
-                by_bucket.setdefault((nt, mirrored, rnd), []).append(i)
-            chunk = max(self.opt.batch_regions, 8)
-            launched = []
-            t0 = _time.time()
-            for (nt, mirrored, rnd), items in by_bucket.items():
-                beam = self.opt.beam_width * (1 << (rnd - 1))
-                # sort by target length: the while_loop exits when every entry
-                # is frozen, so homogeneous chunks stop at ~1.25x their own
-                # longest region instead of the bucket's worst case
-                items.sort(key=lambda i: tgt_len(i, mirrored))
-                for c0 in range(0, len(items), chunk):
-                    idxs = items[c0:c0 + chunk]
-                    fin, lmax = self._launch_bucket(
-                        [regions[i] for i in idxs], nt, mirrored, beam=beam)
-                    launched.append((idxs, mirrored, rnd, fin, lmax))
-            self.timers["launch"] += _time.time() - t0
-            retry = []
-            t0 = _time.time()
-            for idxs, mirrored, rnd, fin, lmax in launched:
-                # the two result arrays of the launch, sliced on the host
-                scal = fin.scalars.cpu().numpy()[:len(idxs)]
-                seqs = FN.unpack_codes(fin.seq_packed.cpu().numpy()[:len(idxs)],
-                                       lmax)
-                for j, i in enumerate(idxs):
-                    sp = regions[i]
-                    final = mirrored and rnd >= rounds
-                    ok = self._finish_region(sp, scal[j], seqs[j], mirrored,
-                                             final)
-                    if ok or sp.kind != "gap" or not sp.mirror:
+        # with a mesh, launches queue on the slots' threads and the read-back
+        # below waits for them; leaving the block joins the threads
+        with (M.SlotPool(self.mesh) if self.mesh is not None
+              else contextlib.nullcontext()) as pool:
+            while pending:
+                by_bucket: dict = {}
+                for i, mirrored, rnd in pending:
+                    ln = tgt_len(i, mirrored)
+                    nt = next((b for b in BUCKETS if ln <= b), None)
+                    if nt is None:
                         continue
-                    if not mirrored:
-                        retry.append((i, True, rnd))
-                    elif rnd < rounds:
-                        retry.append((i, False, rnd + 1))
-            self.timers["finish"] += _time.time() - t0
-            pending = retry
+                    by_bucket.setdefault((nt, mirrored, rnd), []).append(i)
+                chunk = max(self.opt.batch_regions, 8)
+                launched = []
+                t0 = _time.time()
+                for (nt, mirrored, rnd), items in by_bucket.items():
+                    beam = self.opt.beam_width * (1 << (rnd - 1))
+                    # sort by target length: the while_loop exits when every
+                    # entry is frozen, so homogeneous chunks stop at ~1.25x
+                    # their own longest region instead of the bucket's worst
+                    # case
+                    items.sort(key=lambda i: tgt_len(i, mirrored))
+                    for c0 in range(0, len(items), chunk):
+                        idxs = items[c0:c0 + chunk]
+                        read, lmax = self._launch_bucket(
+                            [regions[i] for i in idxs], nt, mirrored,
+                            beam=beam, pool=pool)
+                        launched.append((idxs, mirrored, rnd, read, lmax))
+                self.timers["launch"] += _time.time() - t0
+                retry = []
+                t0 = _time.time()
+                for idxs, mirrored, rnd, read, lmax in launched:
+                    # the two result arrays of the launch, sliced on the host
+                    scal, packed = read()
+                    scal = scal[:len(idxs)]
+                    seqs = FN.unpack_codes(packed[:len(idxs)], lmax)
+                    for j, i in enumerate(idxs):
+                        sp = regions[i]
+                        final = mirrored and rnd >= rounds
+                        ok = self._finish_region(sp, scal[j], seqs[j],
+                                                 mirrored, final)
+                        if ok or sp.kind != "gap" or not sp.mirror:
+                            continue
+                        if not mirrored:
+                            retry.append((i, True, rnd))
+                        elif rnd < rounds:
+                            retry.append((i, False, rnd + 1))
+                self.timers["finish"] += _time.time() - t0
+                pending = retry
 
     def _finish_region(self, sp: RegionSpec, scal: np.ndarray,
                        seq_full: np.ndarray, mirrored: bool,

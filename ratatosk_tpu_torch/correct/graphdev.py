@@ -82,3 +82,9 @@ class DeviceGraph:
             useq=put(fields["useq"], np.uint8),
             utbl=put(fields["utbl"], np.int32),
             color_sig=put(fields["color_sig"], np.int8))
+
+    def to(self, device: torch.device) -> "DeviceGraph":
+        """A copy on another device (a mesh replica)."""
+        return DeviceGraph(k=self.k, useq=self.useq.to(device),
+                           utbl=self.utbl.to(device),
+                           color_sig=self.color_sig.to(device))

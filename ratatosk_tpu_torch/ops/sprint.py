@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -32,6 +33,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
+# mesh slots launch from several threads at once: the first launches must
+# build and load the library once, and the counts add up
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def sprint_rows_ref(rwin, btgt, nb_all, newcols, wsall, m_reg, live, plen, *,
@@ -92,7 +97,9 @@ def build_library() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    # processes sharing a checkout may build at once: each writes its own
+    # file and the last rename wins (the builds are identical)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -104,16 +111,19 @@ def build_library() -> Path:
 
 
 def _library() -> ctypes.CDLL:
+    """The kernel library, built and loaded once per process."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        lib.sprint_rows_launch.restype = ctypes.c_int
-        lib.sprint_rows_launch.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.sprint_rows_max_width.restype = ctypes.c_int
-        lib.sprint_rows_max_width.argtypes = []
-        _lib = lib
-    return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            lib.sprint_rows_launch.restype = ctypes.c_int
+            lib.sprint_rows_launch.argtypes = (
+                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                + [ctypes.c_void_p])
+            lib.sprint_rows_max_width.restype = ctypes.c_int
+            lib.sprint_rows_max_width.argtypes = []
+            _lib = lib
+        return _lib
 
 
 def _check(name, t, shape, device):
@@ -171,8 +181,14 @@ def sprint_rows(rwin, btgt, nb_all, newcols, wsall, m_reg, live, plen, *,
     if err != 0:
         raise RuntimeError(f"sprint_rows kernel launch failed: CUDA error "
                            f"{err} (R={R} B={B} W={W} smax={smax})")
-    sprint_rows.launches += 1
+    with _count_lock:
+        sprint_rows.launches += 1
+        by = sprint_rows.launches_by_stream
+        by[stream] = by.get(stream, 0) + 1
     return rwin_out, btgt_out
 
 
+# kernel launches, in all and per raw CUDA stream handle (a mesh slot's
+# share: Mesh.stream(i).cuda_stream)
 sprint_rows.launches = 0
+sprint_rows.launches_by_stream = {}

@@ -10,8 +10,8 @@ Pass 2: cDBG at k2=63 from short reads, colored by helper long reads (-a) and
 (graph/io.py), the 4-step contract the Nextflow layer ships between nodes.
 
 The host steps are the reference's code. Every Corrector runs on the device
-the caller names (`run_correct(opt, device=...)`): one device, since the
-multi-device mesh is not ported yet (ROADMAP.md Queue 1 item 5).
+the caller names (`run_correct(opt, device=...)`), and with `--devices` > 1
+on a mesh over that many CUDA devices (`local_mesh`).
 """
 
 from __future__ import annotations
@@ -38,23 +38,32 @@ def _log(opt: CorrectOpt, msg: str) -> None:
         print(f"[ratatosk_tpu_torch] {msg}", file=sys.stderr, flush=True)
 
 
-def check_devices(opt: CorrectOpt, device) -> torch.device:
-    """The one device a run corrects on. `--devices 1`, or 0 (all) when
-    exactly one device of the given kind is visible, runs on `device`; a run
-    that would put more than one GPU in play raises, as does a CUDA device
-    that torch cannot see. Nothing moves to another device."""
+def local_mesh(opt: CorrectOpt, device):
+    """Mesh over this process's devices, or None when one is in play.
+
+    `--devices 1` runs on `device` alone; `--devices N` > 1 on a mesh over
+    cuda:0..N-1, and raises when fewer devices of that kind are visible (no
+    device is quietly dropped); `--devices 0` on every visible CUDA device
+    (None when only one is). Every Corrector built by the pipeline splits
+    its region batches over the mesh, the per-node fan-out of the
+    reference's worker pool (Ratatosk_nf/Ratatosk.nf:139-164). A CUDA
+    device that torch cannot see raises; nothing moves to the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested, but torch sees no "
                            "CUDA device")
+    if opt.n_devices == 1:
+        return None
     visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    if opt.n_devices > 1 or (opt.n_devices == 0 and visible > 1):
-        raise NotImplementedError(
-            f"--devices {opt.n_devices} with {visible} visible {device.type} "
-            "devices: several GPUs (the region-batch mesh) are not ported to "
-            "ratatosk_tpu_torch yet (ROADMAP.md Queue 1 item 5); pass "
-            "--devices 1")
-    return device
+    n = opt.n_devices or visible
+    if n > visible:
+        raise RuntimeError(f"--devices {n} requested, but {visible} "
+                           f"{device.type} device(s) are visible")
+    if n <= 1:
+        return None
+    from ratatosk_tpu_torch.parallel import mesh as M
+    _log(opt, f"mesh: splitting region batches over {n} CUDA devices")
+    return M.make_mesh(devices=[torch.device("cuda", i) for i in range(n)])
 
 
 def _expand_file_lists(paths: List[str]) -> List[str]:
@@ -353,10 +362,10 @@ def correct_file(corrector: Corrector, opt: CorrectOpt, in_paths: List[str],
 
 
 def run_correct(opt: CorrectOpt, *, device) -> None:
-    """The CLI's `correct` run; both passes' Correctors run on `device`
-    (check_devices)."""
+    """The CLI's `correct` run; both passes' Correctors run on `device`, or
+    on the mesh of local_mesh."""
     opt.validate()
-    device = check_devices(opt, device)
+    mesh = local_mesh(opt, device)
     prefix = opt.prefix_filename_out
     pass1_out = f"{prefix}.2.fastq"
     final_out = f"{prefix}.fastq" + (".gz" if opt.gzip_out else "")
@@ -382,7 +391,8 @@ def run_correct(opt: CorrectOpt, *, device) -> None:
             cdbg2_pre = rescue_edges_pass1(opt, cdbg, colors, short_reads)
         o1 = _pass_opt(opt, 1)
         corr = Corrector(cdbg, colors, o1, hap=hap,
-                         snps=_detect_snps(opt, cdbg, colors), device=device)
+                         snps=_detect_snps(opt, cdbg, colors), mesh=mesh,
+                         device=device)
         out = pass1_out if not opt.pass1_only else final_out
         n, bp = correct_file(corr, o1, opt.filename_long_in, out, 1,
                              trim_qual=opt.trim_qual if opt.pass1_only else 0)
@@ -405,7 +415,7 @@ def run_correct(opt: CorrectOpt, *, device) -> None:
                                            read_ids, prebuilt_cdbg=cdbg2_pre)
     o2 = _pass_opt(opt, 2)
     corr2 = Corrector(cdbg2, colors2, o2, hap=hap,
-                      snps=_detect_snps(opt, cdbg2, colors2),
+                      snps=_detect_snps(opt, cdbg2, colors2), mesh=mesh,
                       device=device)
     raw_reads = None
     if opt.filenames_long_raw:

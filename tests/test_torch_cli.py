@@ -156,13 +156,14 @@ def test_batch_regions_default_keeps_output(dataset):
 
 
 def test_cli_surface():
-    """--version/--cite; -d is gone; a run with several GPUs raises."""
+    """--version/--cite; -d is gone; a run asking for more devices than are
+    visible raises before it reads anything."""
     assert TC.main(["--version"]) == 0
     assert TC.main(["--cite"]) == 0
     with pytest.raises(SystemExit):
         TC.main(["correct", "-s", "x.fa", "-l", "y.fq", "-o", "z",
                  "-d", "data"], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(RuntimeError, match="--devices 2 requested"):
         TC.main(["correct", "-s", "x.fa", "-l", "y.fq", "-o", "z",
                  "--devices", "2"], device="cpu")
     assert not os.path.exists("z.fastq")

@@ -130,24 +130,23 @@ def test_two_pass_device_planner_matches_jax(dataset, jax_two_pass):
 
 
 def test_unported_paths_raise(dataset):
-    """What the port still lacks raises: the multi-GPU mesh, and a run that
-    would put more than one device in play. Nothing runs elsewhere
-    instead."""
-    _, sreads, _, lr = dataset
-    cdbg = TB.build_cdbg(sreads[:200], K1, min_count=2)
-    colors = t_color_graph(cdbg, sreads[:200])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TCorrector(cdbg, colors, TOpt(small_k=K1, k=K2), device="cpu",
-                   mesh=object())
+    """No device is quietly dropped or swapped: `--devices N` with fewer than
+    N visible devices raises, as does a CUDA device torch cannot see. One
+    device, or `--devices 0` with one visible, gives no mesh (the mesh and
+    the multi-host run are ported: tests/test_torch_parallel.py,
+    tests/test_torch_distributed.py)."""
+    _, _, _, lr = dataset
     for n_devices in (2, 8):
         opt = TOpt(small_k=K1, k=K2, n_devices=n_devices,
                    filename_seq_in=[lr], filename_long_in=[lr])
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(RuntimeError, match=f"--devices {n_devices}"):
             TP.run_correct(opt, device="cpu")
     for n_devices in (0, 1):
-        opt = TOpt(n_devices=n_devices)
-        assert TP.check_devices(opt, "cpu") == torch.device("cpu")
+        assert TP.local_mesh(TOpt(n_devices=n_devices), "cpu") is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            TP.check_devices(TOpt(n_devices=1), "cuda")
+            TP.local_mesh(TOpt(n_devices=1), "cuda")
+    elif torch.cuda.device_count() == 1:
+        with pytest.raises(RuntimeError, match="--devices 2"):
+            TP.local_mesh(TOpt(n_devices=2), "cuda")
     assert os.path.exists(lr)

@@ -25,6 +25,7 @@ COPIED = [
     "correct/seeds.py", "correct/choose.py",
     "graph/rescue_edges.py", "graph/snp.py", "graph/phasing.py",
     "graph/rephase.py", "graph/rescue.py", "graph/io.py", "graph/interop.py",
+    "parallel/build_dist.py",
 ]
 
 
@@ -42,6 +43,11 @@ def test_port_imports_no_jax():
             "import ratatosk_tpu_torch.ops.sprint, ratatosk_tpu_torch.cli\n"
             "import ratatosk_tpu_torch.ops.plan_device\n"
             "import ratatosk_tpu_torch.ops.hash_index\n"
+            "import ratatosk_tpu_torch.parallel.mesh\n"
+            "import ratatosk_tpu_torch.parallel.sharded_index\n"
+            "import ratatosk_tpu_torch.parallel.distributed\n"
+            "import ratatosk_tpu_torch.parallel.build_dist\n"
+            "import ratatosk_tpu_torch.distributed_correct\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'ratatosk_tpu.')))\n"
             "assert not bad, bad\n")

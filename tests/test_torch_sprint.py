@@ -87,6 +87,40 @@ def test_no_silent_fallback_off_the_cpu():
         SP.sprint_rows(*arrs, smax=8)
 
 
+def test_library_builds_once_under_concurrent_first_use(monkeypatch):
+    """Mesh slots reach their first launch from several threads at once:
+    the library is built and loaded once, and every thread gets it."""
+    import threading
+    import time
+    import types
+
+    builds, loads = [], []
+
+    def slow_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.05)
+        return "libfake.so"
+
+    def fake_cdll(path):
+        loads.append(path)
+        return types.SimpleNamespace(
+            sprint_rows_launch=types.SimpleNamespace(),
+            sprint_rows_max_width=types.SimpleNamespace())
+
+    monkeypatch.setattr(SP, "_lib", None)
+    monkeypatch.setattr(SP, "build_library", slow_build)
+    monkeypatch.setattr(SP.ctypes, "CDLL", fake_cdll)
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(SP._library()))
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(builds) == 1 and loads == ["libfake.so"]
+    assert len(got) == 4 and all(lib is got[0] for lib in got)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
