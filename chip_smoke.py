@@ -3,26 +3,49 @@
 
     python3 chip_smoke.py                      # full size, as documented below
     python3 chip_smoke.py --genome-bp 300000 --long-reads 16   # a quick run
-    python3 chip_smoke.py --mesh-only   # phases 1-4, 9 and 10 only: the
+    python3 chip_smoke.py --mesh-only   # phases 1-4b, 9 and 10 only: the
                                         # check on a host with several cards
 
 Phases, one line each (any failure raises, and the script exits non-zero):
   1. environment: torch, CUDA, nvcc, the card's name and power limit, and
-     whether the native k-mer library builds (without it the NumPy fallback
-     makes the graph build crawl);
+     whether the native k-mer and align libraries build (without them the
+     NumPy fallbacks crawl; the align library would otherwise build inside
+     the timed pass 1);
   2. build: the kernel library from ratatosk_tpu_torch/csrc, with nvcc;
-  3. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes (R=512, B=16, smax=8, W in {257, 192, 336}): bit-identical,
-     timed with CUDA events after a warm-up;
+  3. the sprint kernel against its plain PyTorch version on the card, at
+     the main path's shapes (R=512, B=16, smax=8, W in {257, 192, 336}):
+     bit-identical, timed with CUDA events after a warm-up, with its bound
+     (bytes over 3.35 TB/s, int32 operations over 132 x 64 x 1.98 GHz);
   4. the slice: the two-pass correction that bench.py drives (4 Mbp genome
      with 15% x 250 bp repeats, 40x 120 bp short reads, 4 kbp long reads at
      10% error, beam 16, 512 regions per launch, host planner, 2 threads),
-     through ratatosk_tpu_torch.pipeline on the card. Launch counts are reset
-     just before pass 1 and read just after pass 2; every kernel must have
-     launched. 16 sampled reads must come out with under a fifth of their raw
-     error rate;
-  5. pass 1 on the first 16 long reads once more with sprint_impl="torch"
-     (the kernel's plain version): the FASTQ must be byte-identical;
+     through ratatosk_tpu_torch.pipeline on the card (impl="auto": each
+     launch is the fused beam kernel's two launches and the finish kernel's
+     one, with no host sync per branch step). Launch counts are reset just
+     before pass 1 and read just after pass 2; both kernels must have
+     launched. 16 sampled reads must come out with under a fifth of their
+     raw error rate;
+  3b. [kernel] the fused beam kernel and the finish kernel against their
+     plain versions on one launch per bucket (NT 256 / 2048 / 5376, beam W
+     257 / 192 / 336, finish W 389 / 192 / 336), planned from the slice's
+     own reads and padded as the engine pads them (a toy batch from
+     ratatosk_tpu_torch.testing for a bucket the slice lacks):
+     bit-identical, the kernels timed with CUDA events, the plain versions
+     once, each with its bound for the work this launch's planned regions
+     need (beam_work, finish_work: each region's own steps, candidates and
+     columns, counted from a plain run);
+  4b. [warm] both passes of the slice once more on the card, untraced,
+     through fresh Correctors on the slice's graphs: byte-identical to the
+     slice, the warm pass seconds and corrected bases/s of one card (the
+     slice's own passes are the process's first and carry first-use
+     costs); [mesh] and [sharded] are compared with these;
+  5. [plain] pass 1 on the first 16 long reads through impl="auto", "steps"
+     (per-step torch with the sprint kernel) and "torch" (plain): the three
+     FASTQ files must be byte-identical, and each route launch only its own
+     kernels;
+  5b. [trace] pass 1 of the slice once more under torch.profiler: device
+     busy share, pass seconds, plan / launch / finish shares, the kernels
+     that take the device time; the FASTQ must equal the slice's;
   6. [devplan] the device planner on the card, on the slice's k=31 graph
      (first read batch of raw long reads) and k=63 graph (first batch of
      pass-1 reads): its runs and 1-edit seeds must equal the host planner's,
@@ -47,7 +70,7 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      Corrector(..., mesh=...) on the slice's graphs (2 threads): slots are
      cuda:0..n-1 with 2 or more cards, else [cuda:0, cuda:0] (two slots on
      one card). Both FASTQ files must equal the slice's byte for byte, and
-     every slot must launch the kernel;
+     every slot must launch both kernels;
  10. [sharded] ShardedKmerIndex over the same slots on the slice's k=31 and
      k=63 indexes: one read batch's canonical k-mers, absent keys with bit
      63 set and the all-ones key must get the host index's answers
@@ -59,11 +82,11 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      `python -m ratatosk_tpu_torch.distributed_correct --coordinator ...
      --num-processes 2 --process-id i -- <the [cli] flags>`. The final
      FASTQ must equal the [cli] run's byte for byte, both index .npz files
-     exist, and each process's kernel must launch.
-Launch counts are reset just before each path (the slice, the 16-read
-planner run, the mesh and sharded runs, the [cli] run, the -g run; each
-[dist] process counts its own) and read just after; the kernels' record
-sums them.
+     exist, and each process must launch both kernels.
+Launch counts are reset just before each path (the slice, [warm], each
+[plain] route, the 16-read planner run, the mesh and sharded runs, the [cli] run,
+the -g run; each [dist] process counts its own) and read just after; the
+kernels' record sums them by path.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -97,18 +120,66 @@ def _cmd(args) -> str:
     return (out.stdout or out.stderr).strip()
 
 
+# the kernels' wrappers, by the name of the JSON record; the main path of
+# every phase runs the first two (impl="auto"), the sprint kernel runs on
+# the "steps" route ([plain])
+KERNELS = ("fused_beam_search", "finish_bundle_kernel", "sprint_rows")
+PATH_KERNELS = KERNELS[:2]
+# H100 SXM rates for the bounds (HBM3 peak bandwidth; int32: 132 SMs
+# x 64 INT32 lanes x 1.98 GHz: one int op per lane per clock)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def _wrappers():
+    from ratatosk_tpu_torch.ops import beam_kernel, finish_kernel, sprint
+    return {"fused_beam_search": beam_kernel.fused_beam_search,
+            "finish_bundle_kernel": finish_kernel.finish_bundle_kernel,
+            "sprint_rows": sprint.sprint_rows}
+
+
+def _reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
+        fn.launches_by_stream.clear()
+
+
+def _launches(names=PATH_KERNELS) -> dict:
+    w = _wrappers()
+    return {n: w[n].launches for n in names}
+
+
+def _require_launches(tag: str, counts: dict) -> None:
+    """Every kernel of the path launched in this run."""
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"[{tag}] a kernel of the path never launched: "
+                             f"{counts}")
+
+
+def _bound_ms(nbytes: float, ops: float):
+    """(bound ms, what bounds it): the larger of bytes over the memory rate
+    and int32 operations over the int32 operation rate."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
 def phase_environment(torch):
+    from ratatosk_tpu_torch.ops import cuda_lib
     from ratatosk_tpu_torch.ops import native_kmers as NK
-    from ratatosk_tpu_torch.ops import sprint as SP
+    from ratatosk_tpu_torch.ops import native_align as NA
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device")
-    log(f"[env] nvcc: {_cmd([SP._nvcc(), '--version']).splitlines()[-1]}")
+    log(f"[env] nvcc: {_cmd([cuda_lib.nvcc(), '--version']).splitlines()[-1]}")
     smi = _cmd(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     log(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     log(f"[env] native k-mer library available: {NK.available()}")
+    # the align library builds at first use: here, not in the timed pass 1
+    t = time.time()
+    log(f"[env] native align library available: {NA.available()} "
+        f"({time.time() - t:.1f}s)")
     log(f"[env] device 0: {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} visible")
     return smi.splitlines()[0] if smi else ""
@@ -116,10 +187,10 @@ def phase_environment(torch):
 
 def phase_build():
     import re
-    from ratatosk_tpu_torch.ops import sprint as SP
+    from ratatosk_tpu_torch.ops import cuda_lib
     t0 = time.time()
-    path = SP.build_library()
-    SP._library()
+    path = cuda_lib.build_library()
+    cuda_lib.library()
     dt = time.time() - t0
     report = path.with_suffix(".log").read_text()
     regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
@@ -187,10 +258,278 @@ def phase_kernels(torch, dev):
                                  f"version at W={W}: max abs err {err}")
         ms = _time_ms(torch, lambda: SP.sprint_rows(*arrs, smax=smax))
         plain = _time_ms(torch, lambda: SP.sprint_rows_ref(*arrs, smax=smax))
-        rows[W] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+        # bytes: every input once, both outputs once; operations: ~10 int32
+        # ops per cell of each live entry's substep row update and scan
+        nbytes = sum(a.numel() * 4 for a in arrs) + (R * B * W + R * W) * 4
+        m_reg, live = arrs[5].long(), arrs[6].long()
+        ops = 10 * W * int((m_reg * live.sum(dim=1)).sum())
+        bound, by = _bound_ms(nbytes, ops)
+        rows[W] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                       bound_ms=bound, bound_by=by)
         log(f"[kernel] sprint_rows R={R} B={B} W={W} smax={smax}: "
             f"bit-identical to sprint_rows_ref; kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms")
+            f"plain {plain:.4f} ms, bound {bound:.4f} ms ({by})")
+    return rows
+
+
+def _engine_pad(n: int, batch_regions: int) -> int:
+    """The engine's padded row count of a launch (engine._launch_bucket)."""
+    import numpy as np
+    rp = 1 << int(np.ceil(np.log2(max(n, 1))))
+    return max(min(rp, batch_regions), min(128, batch_regions))
+
+
+def bucket_batches(sl: dict, dev):
+    """One launch per bucket as the engine forms it: the bucket's regions
+    planned from the slice's own reads (pass 1 on the raw reads with the
+    k=31 graph, pass 2 on the pass-1 reads with the k=63 graph; the pass
+    with more regions in the bucket), sorted by target length, the first
+    chunk of at most batch_regions, padded to the engine's tier. A bucket
+    the slice lacks gets a toy batch from ratatosk_tpu_torch.testing."""
+    import numpy as np
+    from ratatosk_tpu_torch import testing
+    from ratatosk_tpu_torch.config import CorrectOpt
+    from ratatosk_tpu_torch.correct import beam as BM
+    from ratatosk_tpu_torch.correct.engine import BUCKETS, region_arrays
+    from ratatosk_tpu_torch.io import fastx
+    pools = []
+    for tag, corr, o, path in (("pass 1", sl["corr1"], sl["o1"],
+                                sl["lr_path"]),
+                               ("pass 2", sl["corr2"], sl["o2"],
+                                sl["p1_path"])):
+        recs = list(fastx.read_fastx(path))
+        _, _, regions = corr.plan_batch([r.codes for r in recs],
+                                        [r.qual for r in recs])
+        pools.append((tag, corr, o, regions))
+    toy = None
+    out, lo = {}, 0
+    for nt in BUCKETS:
+        cands = [(sorted((s for s in regions if lo < len(s.tgt) <= nt),
+                         key=lambda s: len(s.tgt)), tag, corr, o)
+                 for tag, corr, o, regions in pools]
+        specs, tag, corr, o = max(cands, key=lambda c: len(c[0]))
+        if not specs:
+            if toy is None:
+                opt = CorrectOpt(small_k=21, k=63, beam_width=16,
+                                 batch_regions=512)
+                genome, tc = testing.build_toy_corrector(
+                    seed=SEED, glen=20000, k=21, opt=opt, device=dev)
+                toy = (tc, opt, testing.toy_region_specs(
+                    tc, genome, np.random.default_rng(SEED), 64))
+            corr, o, specs = toy
+            specs = sorted((s for s in specs if len(s.tgt) <= nt),
+                           key=lambda s: len(s.tgt))
+            tag = "toy batch (ratatosk_tpu_torch.testing)"
+        lo = nt
+        specs = specs[:o.batch_regions]
+        rp = _engine_pad(len(specs), o.batch_regions)
+        arrays, lmax = region_arrays(specs, nt, corr.colors.cap, r_pad=rp,
+                                     len_factor=o.weak_region_len_factor)
+        band = 0 if nt <= 256 else max(o.band_width, nt // 16)
+        out[nt] = dict(g=corr.g, rb=BM.RegionBatch.from_numpy(arrays, dev),
+                       lmax=lmax, band=band, W=BM.band_width(nt, band),
+                       n_real=len(specs), tag=tag, k=corr.cdbg.k,
+                       qv_max=corr.qv_max, beam=o.beam_width,
+                       min_cov=o.min_cov_vertices,
+                       mso=o.min_score_open_region)
+    return out
+
+
+# int32 operations per band cell: the edit recurrence (substitution test,
+# two adds, a min), the band stats a candidate's score reads (a compare and
+# a min), the prefix-min scan of a row that is kept (subtract, min, add)
+DP_OPS, STATS_OPS, SCAN_OPS = 5, 2, 3
+
+
+def beam_work(torch, g, rb, *, beam: int, lmax: int, band: int,
+              min_cov: int, n_real: int, smax: int = 8) -> dict:
+    """The work the beam search needs on this batch, counted from a plain
+    run step by step (untimed). Only the n_real planned rows count: padding
+    rows are inert. A band row of region r costs its min(W, tgt_len+1)
+    columns: no result reads a column past tgt_len. While region r has a
+    live unfrozen entry (its steps before f_r) it needs each live entry's
+    sprint substep rows (recurrence and scan), the DP row and band stats of
+    each valid candidate, the scan of each winner that emitted, the score of
+    each valid candidate and a top-B selection of its 4B candidates (C log2
+    C compares), and the two color dot products and the popcount of each
+    winner that took a branch; from the graph, each active entry's successor
+    record and bases and each branching winner's color signature. In its
+    steps f_r..T-1 it only re-ranks its kept entries (B log2 B compares).
+    Then one walk of T steps back through the history. Returns the counts,
+    T, and bytes and operations for the bound."""
+    import math
+    from ratatosk_tpu_torch.correct import beam as BM
+    from ratatosk_tpu_torch.ops import sprint as SP
+    R, NT = rb.tgt_masks.shape
+    W, B, H = BM.band_width(NT, band), beam, g.color_sig.shape[1]
+    dev = rb.tgt_masks.device
+    real = torch.arange(R, device=dev) < n_real
+    st, pt = BM._init_state(rb, B, lmax, W)
+    f = torch.zeros(R, dtype=torch.int64, device=dev)
+    # per region: sprint rows, valid candidates (one DP row each), emitting
+    # winners, no-successor keeps, branching winners, graph bytes
+    n = torch.zeros((6, R), dtype=torch.int64, device=dev)
+    t = 0
+    while t < lmax and bool((st.live & ~st.frozen).any()):
+        act = st.live & ~st.frozen & real[:, None]
+        act_r = act.any(dim=1)
+        uid = (st.tip >> 1).clamp(0, g.utbl.shape[0] - 1).long()
+        rec = g.utbl[uid, (st.tip & 1).long()]
+        s1, sbits, scnt = BM._sprint_advance(g, rb, pt, st, rec, smax,
+                                             SP.sprint_rows_ref)
+        at_bound = act & (s1.off >= rec[..., 4])
+        nsucc = (rec[..., :4] >= 0).sum(dim=-1)
+        ncand = torch.where(at_bound, nsucc, act.long())
+        s2 = BM._beam_step(g, rb, pt, s1, t, min_cov, rec, sbits, scnt)
+        h = s2.hist[t]
+        par = ((h >> 3) & 127).long()
+        # a branching winner's signature decides whether it stays live; an
+        # emitting winner's row matters only if it does
+        branch_w = act_r[:, None] & (s2.nvis > s1.nvis.gather(1, par))
+        emit_w = act_r[:, None] & s2.live & (((h >> 2) & 1) == 1)
+        sprint_n = torch.where(act, scnt, 0).sum(dim=1)
+        n += torch.stack([
+            sprint_n, ncand.sum(dim=1), emit_w.sum(dim=1),
+            (at_bound & (nsucc == 0)).sum(dim=1), branch_w.sum(dim=1),
+            24 * act.sum(dim=1) + sprint_n + (act & ~at_bound).sum(dim=1)
+            + H * branch_w.sum(dim=1)])
+        f += act_r
+        st, t = s2, t + 1
+    T = t
+    cols = (rb.tgt_len.long() + 1).clamp(max=W)
+    sprint_rows, cand_rows, emit_rows, _ = n[:4].sum(dim=1).tolist()
+    sprint_cells, cand_cells, emit_cells, keep_cells = (
+        (n[:4] * cols).sum(dim=1).tolist())
+    n_branch, graph_bytes = (int(x) for x in n[4:].sum(dim=1).tolist())
+    f_real = f[:n_real]
+    active_steps = int(f_real.sum())
+    keep_steps = n_real * T - active_steps
+    C = 4 * B
+    ops = (sprint_cells * (DP_OPS + SCAN_OPS)
+           + cand_cells * (DP_OPS + STATS_OPS)
+           + emit_cells * SCAN_OPS + keep_cells * STATS_OPS
+           + 8 * cand_rows + active_steps * C * math.ceil(math.log2(C))
+           + 5 * H * n_branch
+           + keep_steps * B * max(1, math.ceil(math.log2(B)))
+           + n_real * T * smax)
+    in_bytes = sum(getattr(rb, fl)[:n_real].numel()
+                   * getattr(rb, fl).element_size()
+                   for fl in ("tgt_masks", "tgt_len", "start_tip",
+                              "start_off", "end_tip", "end_off",
+                              "colors_sig", "colors_wsig", "max_plen",
+                              "end_cyclic"))
+    nbytes = in_bytes + graph_bytes + n_real * (lmax + 6 * 4 + 1)
+    return dict(T=T, f_max=int(f_real.max()) if n_real else 0,
+                f_mean=active_steps / max(n_real, 1), ops=ops, bytes=nbytes,
+                sprint_rows=sprint_rows, cand_rows=cand_rows,
+                emit_rows=emit_rows, branch_winners=n_branch)
+
+
+def finish_work(torch, rb, res, *, band: int, n_real: int) -> dict:
+    """The work the finish bundle needs: for each planned row, the DP rows
+    0..max(tgt_len, best_end) at min(W, best_len + 1) columns each (the
+    decisions read no column past best_len), ~10 int32 operations per cell
+    (recurrence, scan, the running minimum and its tie column); bytes: the
+    target masks and qualities those rows read, the path, the scalars in
+    and out, the packed path out."""
+    L = res.best_seq.shape[1]
+    NT = rb.tgt_masks.shape[1]
+    Wf = L + 1 if band <= 0 or band >= L + 1 else band
+    n = rb.tgt_len[:n_real].long()
+    last = torch.maximum(n, res.best_end[:n_real].long().clamp(0, NT))
+    blen = res.best_len[:n_real].long()
+    cells = int(((last + 1) * (blen + 1).clamp_max(Wf)).sum())
+    nbytes = (int(last.sum()) + 4 * int(n.sum()) + int(blen.sum())
+              + n_real * (21 + 11 * 4 + 4 * -(-L // 16)))
+    return dict(W=Wf, rows=int((last + 1).sum()), cells=cells,
+                ops=10 * cells, bytes=nbytes)
+
+
+def phase_fused_kernels(torch, sl: dict, dev):
+    """The fused beam kernel and the finish kernel against their plain
+    versions on one launch of each bucket: bit-identical, the kernels timed
+    with CUDA events, the plain versions once."""
+    from ratatosk_tpu_torch.correct import beam as BM
+    from ratatosk_tpu_torch.correct import finish as FN
+    from ratatosk_tpu_torch.ops.beam_kernel import fused_beam_search
+    from ratatosk_tpu_torch.ops.finish_kernel import finish_bundle_kernel
+    t0 = time.time()
+    batches = bucket_batches(sl, dev)
+    log(f"[kernel] planned one launch per bucket in {time.time() - t0:.1f}s")
+    rows = {"fused_beam_search": {}, "finish_bundle_kernel": {}}
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    for nt, b in batches.items():
+        g, rb, lmax, band, W, B = (b["g"], b["rb"], b["lmax"], b["band"],
+                                   b["W"], b["beam"])
+        R = rb.tgt_masks.shape[0]
+        kw = dict(beam=B, lmax=lmax, min_cov=b["min_cov"], band=band)
+        got = fused_beam_search(g, rb, **kw)
+        torch.cuda.synchronize()
+        # the plain version, once
+        a, z = ev(), ev()
+        a.record()
+        want = BM.beam_search(g, rb, impl="torch", **kw)
+        z.record()
+        torch.cuda.synchronize()
+        plain = a.elapsed_time(z)
+        err = 0
+        for f in BM.FIELDS:
+            x, y = getattr(got, f), getattr(want, f)
+            err = max(err, int((x.long() - y.long()).abs().max()))
+            if not torch.equal(x, y):
+                raise AssertionError(f"fused beam kernel differs from the "
+                                     f"plain version at NT={nt}, field {f}: "
+                                     f"max abs err {err}")
+        ms = _time_ms(torch, lambda: fused_beam_search(g, rb, **kw), reps=5,
+                      warm=1)
+        wk = beam_work(torch, g, rb, n_real=b["n_real"], **kw)
+        T = wk["T"]
+        bound, by = _bound_ms(wk["bytes"], wk["ops"])
+        rows["fused_beam_search"][nt] = dict(
+            R=R, n_real=b["n_real"], B=B, W=W, T=T, f_max=wk["f_max"],
+            f_mean=wk["f_mean"], max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, source=b["tag"])
+        log(f"[kernel] fused_beam_search NT={nt} ({b['tag']}): R={R} "
+            f"({b['n_real']} real) B={B} W={W} lmax={lmax} T={T} (real "
+            f"regions' own steps: mean {wk['f_mean']:.1f}, max "
+            f"{wk['f_max']}): bit-identical to the plain version; kernel "
+            f"{ms:.4f} ms (2 launches), plain {plain:.1f} ms; bound "
+            f"{bound:.4f} ms ({by}: {wk['ops']} int32 ops for "
+            f"{wk['sprint_rows']} sprint rows, {wk['cand_rows']} candidate "
+            f"rows, {wk['emit_rows']} rebuilt rows, {wk['branch_winners']} "
+            f"color checks; {wk['bytes']} bytes)")
+
+        fkw = dict(w=band, min_score_open=b["mso"])
+        fargs = (rb.tgt_masks, rb.tgt_len, rb.tgt_qual, b["qv_max"], b["k"],
+                 want)
+        fo = finish_bundle_kernel(*fargs, **fkw)
+        torch.cuda.synchronize()
+        a, z = ev(), ev()
+        a.record()
+        fw = FN.finish_bundle(*fargs, **fkw)
+        z.record()
+        torch.cuda.synchronize()
+        fplain = a.elapsed_time(z)
+        ferr = max(int((fo.scalars - fw.scalars).abs().max()),
+                   int((fo.seq_packed.long() - fw.seq_packed.long())
+                       .abs().max()))
+        if not (torch.equal(fo.scalars, fw.scalars)
+                and torch.equal(fo.seq_packed, fw.seq_packed)):
+            raise AssertionError(f"finish kernel differs from finish_bundle "
+                                 f"at NT={nt}: max abs err {ferr}")
+        fms = _time_ms(torch, lambda: finish_bundle_kernel(*fargs, **fkw),
+                       reps=10, warm=2)
+        fw = finish_work(torch, rb, want, band=band, n_real=b["n_real"])
+        fbound, fby = _bound_ms(fw["bytes"], fw["ops"])
+        rows["finish_bundle_kernel"][nt] = dict(
+            R=R, W=fw["W"], rows=fw["rows"], cells=fw["cells"],
+            max_abs_err=ferr, ms=fms, plain_ms=fplain, bound_ms=fbound,
+            bound_by=fby)
+        log(f"[kernel] finish_bundle_kernel NT={nt}: R={R} L={lmax} "
+            f"W={fw['W']}, {fw['rows']} DP rows of the real regions, "
+            f"{fw['cells']} cells up to best_len: bit-identical to "
+            f"finish_bundle; kernel {fms:.4f} ms, plain {fplain:.1f} ms, "
+            f"bound {fbound:.4f} ms ({fby})")
     return rows
 
 
@@ -249,7 +588,6 @@ def run_slice(device, glen: int, n_reads: int, workdir: str, smi: str = ""):
     from ratatosk_tpu_torch.graph import build as B
     from ratatosk_tpu_torch.graph.colors import color_graph
     from ratatosk_tpu_torch.io import fastx
-    from ratatosk_tpu_torch.ops import sprint as SP
     from ratatosk_tpu_torch.pipeline import (_pass_opt, build_pass2_index,
                                              correct_file)
 
@@ -282,7 +620,7 @@ def run_slice(device, glen: int, n_reads: int, workdir: str, smi: str = ""):
 
     p1_path = os.path.join(workdir, "out.2.fastq")
     p2_path = os.path.join(workdir, "out.fastq")
-    SP.sprint_rows.launches = 0          # counts cover the main path only
+    _reset_launches()                    # counts cover the main path only
     sync()
     t = time.time()
     n1, _ = correct_file(corr1, o1, [lr_path], p1_path, 1)
@@ -303,12 +641,12 @@ def run_slice(device, glen: int, n_reads: int, workdir: str, smi: str = ""):
     n2, _ = correct_file(corr2, o2, [p1_path], p2_path, 2)
     sync()
     times["p2_correct"] = time.time() - t
-    launches = {"sprint_rows": SP.sprint_rows.launches}
+    launches = _launches()
     log(f"[slice] pass 2: {n2} reads in {times['p2_correct']:.1f}s; "
         + ", ".join(f"{k}={v:.1f}s" for k, v in corr2.timers.items()))
 
-    if dev.type == "cuda" and min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if dev.type == "cuda":
+        _require_launches("slice", launches)
     if n1 != n_reads or n2 != n_reads:
         raise AssertionError(f"{n1}/{n2} of {n_reads} reads corrected")
     out1 = _check_reads(p1_path, n_reads)
@@ -331,8 +669,11 @@ def run_slice(device, glen: int, n_reads: int, workdir: str, smi: str = ""):
 
 
 def phase_plain_vs_kernel(device, sl: dict, workdir: str, n: int = 16):
-    """Pass 1 on the first n long reads through the kernel and through its
-    plain version: the FASTQ bytes must match."""
+    """Pass 1 on the first n long reads through each impl route: "auto"
+    (the fused kernels), "steps" (per-step torch with the sprint kernel)
+    and "torch" (plain): the FASTQ bytes must match. Returns (reads file,
+    FASTQ bytes, the sprint kernel's launches in the "steps" run)."""
+    import torch
     from ratatosk_tpu_torch.correct.engine import Corrector
     from ratatosk_tpu_torch.pipeline import correct_file
     head = os.path.join(workdir, "head.fq")
@@ -340,21 +681,86 @@ def phase_plain_vs_kernel(device, sl: dict, workdir: str, n: int = 16):
         for _ in range(4 * n):
             f.write(src.readline())
     corr1, o1 = sl["corr1"], sl["o1"]
-    plain = Corrector(corr1.cdbg, corr1.colors, o1, device=device,
-                      sprint_impl="torch")
-    outs = {}
-    for name, corr in (("kernel", corr1), ("torch", plain)):
+    outs, counts = {}, {}
+    for impl in ("auto", "steps", "torch"):
+        corr = corr1 if impl == "auto" else Corrector(
+            corr1.cdbg, corr1.colors, o1, device=device, impl=impl)
+        _reset_launches()
+        torch.cuda.synchronize()
         t = time.time()
-        path = Path(workdir) / f"{name}.fq"
+        path = Path(workdir) / f"{impl}.fq"
         correct_file(corr, o1, [head], str(path), 1)
-        outs[name] = path.read_bytes()
-        log(f"[plain] pass 1 on {n} reads, sprint via {name}: "
-            f"{time.time() - t:.1f}s")
-    if outs["kernel"] != outs["torch"]:
-        raise AssertionError("pass-1 FASTQ differs between the sprint kernel "
-                             "and its plain version")
-    log(f"[plain] FASTQ byte-identical ({len(outs['kernel'])} bytes)")
-    return head, outs["kernel"]
+        torch.cuda.synchronize()
+        counts[impl] = _launches(KERNELS)
+        outs[impl] = path.read_bytes()
+        log(f"[plain] pass 1 on {n} reads, impl={impl!r}: "
+            f"{time.time() - t:.1f}s; launches {counts[impl]}")
+    if not outs["auto"] == outs["steps"] == outs["torch"]:
+        raise AssertionError("pass-1 FASTQ differs between the impl routes "
+                             "auto / steps / torch")
+    _require_launches("plain auto", {k: counts["auto"][k]
+                                     for k in PATH_KERNELS})
+    if counts["steps"]["sprint_rows"] <= 0:
+        raise AssertionError("the sprint kernel never launched on the "
+                             "steps route")
+    if sum(counts["torch"].values()) or counts["auto"]["sprint_rows"] \
+            or counts["steps"]["fused_beam_search"]:
+        raise AssertionError(f"a route launched another route's kernel: "
+                             f"{counts}")
+    log(f"[plain] FASTQ byte-identical across auto / steps / torch "
+        f"({len(outs['auto'])} bytes)")
+    return head, outs["auto"], counts["steps"]["sprint_rows"]
+
+
+def phase_trace(sl: dict, workdir: str):
+    """Pass 1 of the slice once more under torch.profiler: the device busy
+    share (the union of the kernels' intervals over the pass's wall time),
+    the pass seconds, the plan / launch / finish shares and the kernels that
+    take the device time. The FASTQ must equal the slice's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ratatosk_tpu_torch.correct.engine import Corrector
+    from ratatosk_tpu_torch.pipeline import correct_file
+    c1, o1 = sl["corr1"], sl["o1"]
+    corr = Corrector(c1.cdbg, c1.colors, o1, device=c1.device)
+    out = os.path.join(workdir, "trace.p1.fastq")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        correct_file(corr, o1, [sl["lr_path"]], out, 1)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    if Path(out).read_bytes() != Path(sl["p1_path"]).read_bytes():
+        raise AssertionError("[trace] the traced pass 1 differs from the "
+                             "slice's")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, hi, by_name = 0.0, None, {}
+    for a, b in spans:
+        if hi is None or a > hi:
+            busy += b - a
+            hi = b
+        elif b > hi:
+            busy += b - hi
+            hi = b
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    share = busy / (wall * 1e6)
+    tm = corr.timers
+    log(f"[trace] pass 1 traced (torch.profiler, CPU+CUDA): {wall:.2f}s "
+        f"wall; plan {tm['plan']:.2f}s ({tm['plan'] / wall:.1%}), launch "
+        f"{tm['launch']:.2f}s ({tm['launch'] / wall:.1%}), finish "
+        f"{tm['finish']:.2f}s ({tm['finish'] / wall:.1%}); {len(spans)} "
+        f"device ops, device busy {busy / 1e6:.3f}s = {share:.2%} of the "
+        f"wall; device time by kernel: "
+        + "; ".join(f"{n[:60]} {us / 1e3:.1f} ms" for n, us in top))
+    if not spans:
+        raise AssertionError("[trace] the profiler saw no device op")
+    return dict(wall=wall, busy_share=share, timers=dict(tm))
 
 
 def _first_batch(path: str, batch_bp: int):
@@ -395,13 +801,12 @@ def phase_devplan(device, sl: dict, workdir: str, head: str,
                   host_fastq: bytes):
     """The device planner against the host planner on the card: runs and
     seeds of one read batch per graph, ms per batch, then a pass-1 run with
-    plan_on_device=True. Returns the sprint launches of that run."""
+    plan_on_device=True. Returns the kernels' launches in that run."""
     import dataclasses
     import torch
     from ratatosk_tpu_torch.correct.engine import _NEAR_EXACT_SKIP, Corrector
     from ratatosk_tpu_torch.correct.seeds import (find_runs,
                                                   find_weak_seeds_batch)
-    from ratatosk_tpu_torch.ops import sprint as SP
     from ratatosk_tpu_torch.ops.plan_device import DevicePlanner
     from ratatosk_tpu_torch.pipeline import correct_file
     o1 = sl["o1"]
@@ -460,12 +865,12 @@ def phase_devplan(device, sl: dict, workdir: str, head: str,
     corr = Corrector(sl["corr1"].cdbg, sl["corr1"].colors, o1d, device=device)
     corr.warmup_compile()
     out = Path(workdir) / "devplan.fq"
-    SP.sprint_rows.launches = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t = time.time()
     correct_file(corr, o1d, [head], str(out), 1)
     torch.cuda.synchronize()
-    launches = SP.sprint_rows.launches
+    launches = _launches()
     dt = time.time() - t
     batches += 1
     fallbacks += corr.devplan.n_fallback
@@ -479,8 +884,7 @@ def phase_devplan(device, sl: dict, workdir: str, head: str,
         f"{dt:.1f}s, plan {corr.timers['plan']:.2f}s, n_fallback "
         f"{corr.devplan.n_fallback}, {launches} kernel launches; "
         f"{fallbacks} of {batches} planner batches fell back")
-    if launches <= 0:
-        raise AssertionError("the sprint kernel never launched")
+    _require_launches("devplan", launches)
     return launches
 
 
@@ -495,26 +899,20 @@ def make_slots(torch):
     return M.make_mesh(devices=devs), how
 
 
-def _reset_launches():
-    from ratatosk_tpu_torch.ops import sprint as SP
-    SP.sprint_rows.launches = 0
-    SP.sprint_rows.launches_by_stream.clear()
-
-
-def _mesh_passes(tag: str, sl: dict, workdir: str, mesh, **opt_kw):
-    """Both passes of the slice on `mesh`; the FASTQ files must equal the
-    slice's. Returns (launches, per-slot launches, pass seconds)."""
+def _two_passes(tag: str, sl: dict, workdir: str, place: dict, **opt_kw):
+    """Both passes of the slice through fresh Correctors on the slice's
+    graphs, placed by `place` (device=... or mesh=...); the FASTQ files must
+    equal the slice's. Returns (launches, pass seconds)."""
     import dataclasses
     import torch
     from ratatosk_tpu_torch.correct.engine import Corrector
-    from ratatosk_tpu_torch.ops import sprint as SP
     from ratatosk_tpu_torch.pipeline import correct_file
     o1 = dataclasses.replace(sl["o1"], **opt_kw)
     o2 = dataclasses.replace(sl["o2"], **opt_kw)
     c1, c2 = sl["corr1"], sl["corr2"]
-    corr1 = Corrector(c1.cdbg, c1.colors, o1, mesh=mesh)
+    corr1 = Corrector(c1.cdbg, c1.colors, o1, **place)
     corr1.warmup_compile()
-    corr2 = Corrector(c2.cdbg, c2.colors, o2, mesh=mesh)
+    corr2 = Corrector(c2.cdbg, c2.colors, o2, **place)
     if opt_kw.get("shard_index_min_keys") == 0 and (
             corr1.sharded is None or corr2.sharded is None):
         raise AssertionError(f"[{tag}] the sharded index is not in use")
@@ -531,11 +929,38 @@ def _mesh_passes(tag: str, sl: dict, workdir: str, mesh, **opt_kw):
         if Path(out).read_bytes() != Path(ref).read_bytes():
             raise AssertionError(f"[{tag}] pass-{p} FASTQ differs from the "
                                  "single-device slice's")
-    per_slot = [SP.sprint_rows.launches_by_stream.get(
-        mesh.stream(i).cuda_stream, 0) for i in range(mesh.size)]
-    launches = SP.sprint_rows.launches
-    if min(per_slot) <= 0:
-        raise AssertionError(f"[{tag}] a slot never launched the kernel: "
+    launches = _launches()
+    _require_launches(tag, launches)
+    return launches, secs
+
+
+def phase_warm(sl: dict, workdir: str, dev, smi: str):
+    """Both passes of the slice once more on one device, untraced, through
+    fresh Correctors on the slice's graphs: the slice's own passes are the
+    first in the process and carry its first-use costs, so the rate of one
+    card and the mesh's comparison are read here."""
+    launches, secs = _two_passes("warm", sl, workdir, dict(device=dev))
+    t = sl["times"]
+    dt = secs[1] + secs[2]
+    sl["warm"] = secs
+    log(f"[warm] both passes again on {dev}, untraced: pass 1 "
+        f"{secs[1]:.2f}s (slice {t['p1_correct']:.2f}s), pass 2 "
+        f"{secs[2]:.2f}s (slice {t['p2_correct']:.2f}s); byte-identical to "
+        f"the slice; {sl['bases']} bases in {dt:.2f}s: "
+        f"{sl['bases'] / dt:.1f} corrected bases/s on {smi or dev}; "
+        f"{launches} kernel launches")
+    return launches
+
+
+def _mesh_passes(tag: str, sl: dict, workdir: str, mesh, **opt_kw):
+    """Both passes of the slice on `mesh`, against the slice. Returns
+    (launches, per-slot launches, pass seconds)."""
+    launches, secs = _two_passes(tag, sl, workdir, dict(mesh=mesh), **opt_kw)
+    w = _wrappers()
+    per_slot = {n: [w[n].launches_by_stream.get(mesh.stream(i).cuda_stream, 0)
+                    for i in range(mesh.size)] for n in PATH_KERNELS}
+    if min(min(v) for v in per_slot.values()) <= 0:
+        raise AssertionError(f"[{tag}] a slot never launched a kernel: "
                              f"{per_slot}")
     return launches, per_slot, secs
 
@@ -543,10 +968,10 @@ def _mesh_passes(tag: str, sl: dict, workdir: str, mesh, **opt_kw):
 def phase_mesh(sl: dict, workdir: str, mesh, how: str):
     """Both passes through Corrector(mesh=...), against the slice."""
     launches, per_slot, secs = _mesh_passes("mesh", sl, workdir, mesh)
-    t = sl["times"]
-    log(f"[mesh] {mesh} ({how}): pass 1 {secs[1]:.1f}s (slice "
-        f"{t['p1_correct']:.1f}s), pass 2 {secs[2]:.1f}s (slice "
-        f"{t['p2_correct']:.1f}s); both FASTQ files byte-identical to the "
+    w = sl["warm"]
+    log(f"[mesh] {mesh} ({how}): pass 1 {secs[1]:.2f}s (one device, warm "
+        f"{w[1]:.2f}s), pass 2 {secs[2]:.2f}s (one device, warm "
+        f"{w[2]:.2f}s); both FASTQ files byte-identical to the "
         f"slice's; kernel launches per slot {per_slot} ({launches} in all)")
     return launches
 
@@ -616,10 +1041,10 @@ def phase_sharded(sl: dict, workdir: str, mesh):
             f"{', '.join(f'{x:.1f}' for x in ms)}")
     launches, per_slot, secs = _mesh_passes("sharded", sl, workdir, mesh,
                                             shard_index_min_keys=0)
-    t = sl["times"]
+    w = sl["warm"]
     log(f"[sharded] both passes with shard_index_min_keys=0: pass 1 "
-        f"{secs[1]:.1f}s (slice {t['p1_correct']:.1f}s), pass 2 "
-        f"{secs[2]:.1f}s (slice {t['p2_correct']:.1f}s); byte-identical to "
+        f"{secs[1]:.2f}s (one device, warm {w[1]:.2f}s), pass 2 "
+        f"{secs[2]:.2f}s (one device, warm {w[2]:.2f}s); byte-identical to "
         f"the slice; kernel launches per slot {per_slot} ({launches} in all)")
     return launches
 
@@ -627,12 +1052,13 @@ def phase_sharded(sl: dict, workdir: str, mesh):
 _DIST_RUNNER = r"""
 import sys
 from ratatosk_tpu_torch import distributed_correct
-from ratatosk_tpu_torch.ops import sprint
+from ratatosk_tpu_torch.ops import beam_kernel, finish_kernel
 pid, port = sys.argv[1], sys.argv[2]
 argv = ["--coordinator", f"localhost:{port}", "--num-processes", "2",
         "--process-id", pid, "--"] + sys.argv[3:]
 assert distributed_correct.main(argv, device="cuda") == 0
-print("sprint_launches", sprint.sprint_rows.launches, flush=True)
+print("launches", beam_kernel.fused_beam_search.launches,
+      finish_kernel.finish_bundle_kernel.launches, flush=True)
 """
 
 
@@ -675,10 +1101,10 @@ def phase_dist(sl: dict, workdir: str, short_fa: str, cli_out: str):
         if p.returncode != 0:
             raise AssertionError(f"[dist] process {pid} exited "
                                  f"{p.returncode}:\n{err[-4000:]}")
-    launches = [int(o.strip().splitlines()[-1].split()[1]) for o in outs]
-    if min(launches) <= 0:
-        raise AssertionError(f"[dist] a process never launched the kernel: "
-                             f"{launches}")
+    per_proc = [dict(zip(PATH_KERNELS, map(
+        int, o.strip().splitlines()[-1].split()[1:]))) for o in outs]
+    for pid, c in enumerate(per_proc):
+        _require_launches(f"dist process {pid}", c)
     if Path(out + ".fastq").read_bytes() != Path(cli_out + ".fastq") \
             .read_bytes():
         raise AssertionError("[dist] final FASTQ differs from the [cli] run's")
@@ -697,8 +1123,8 @@ def phase_dist(sl: dict, workdir: str, short_fa: str, cli_out: str):
     log(f"[dist] 2 processes on cuda:0 (gloo, localhost:{port}): "
         f"{wall:.1f}s wall; {'; '.join(steps)}; final FASTQ byte-identical "
         f"to the [cli] run's; index .npz k31/k63 written; kernel launches "
-        f"{launches}")
-    return sum(launches)
+        f"{per_proc}")
+    return {n: sum(c[n] for c in per_proc) for n in PATH_KERNELS}
 
 
 def _write_short_fasta(sreads, path: str, half_path: str) -> None:
@@ -721,20 +1147,18 @@ def phase_cli(sl: dict, workdir: str, short_fa: str, smi: str):
     """The user's `correct` command at the slice's data shape."""
     import torch
     from ratatosk_tpu_torch import cli
-    from ratatosk_tpu_torch.ops import sprint as SP
     truth, n_reads = sl["truth"], len(sl["truth"])
     out = os.path.join(workdir, "cli")
     trace = os.path.join(workdir, "cli.trace.jsonl")
-    SP.sprint_rows.launches = 0
+    _reset_launches()
     t = time.time()
     cli.main(["correct", "-s", short_fa, "-l", sl["lr_path"], "-o", out,
               "-c", "2", "--devices", "1", "-v", "--trace-json", trace],
              device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches = SP.sprint_rows.launches
-    if launches <= 0:
-        raise AssertionError("the sprint kernel never launched in the CLI run")
+    launches = _launches()
+    _require_launches("cli", launches)
     evs = _trace(trace)
     snp = [e for e in evs if e["ev"] == "snp"]
     rescue = [e for e in evs if e["ev"] == "rescue"]
@@ -769,7 +1193,6 @@ def phase_index(sl: dict, workdir: str, half_fa: str, cli_out: str):
     from ratatosk_tpu_torch import cli
     from ratatosk_tpu_torch.graph import interop as IT
     from ratatosk_tpu_torch.graph import io as GIO
-    from ratatosk_tpu_torch.ops import sprint as SP
     truth, n_reads = sl["truth"], len(sl["truth"])
     pref = os.path.join(workdir, "idx")
     t = time.time()
@@ -788,16 +1211,15 @@ def phase_index(sl: dict, workdir: str, half_fa: str, cli_out: str):
     t_save = time.time() - t
     out = os.path.join(workdir, "g")
     trace = os.path.join(workdir, "g.trace.jsonl")
-    SP.sprint_rows.launches = 0
+    _reset_launches()
     t = time.time()
     cli.main(["correct", "-g", npz, "-l", sl["lr_path"], "-o", out, "-1",
               "-c", "2", "--devices", "1", "-v", "--trace-json", trace],
              device="cuda")
     torch.cuda.synchronize()
     t_g = time.time() - t
-    launches = SP.sprint_rows.launches
-    if launches <= 0:
-        raise AssertionError("the sprint kernel never launched in the -g run")
+    launches = _launches()
+    _require_launches("index -g", launches)
     p1 = [e for e in _trace(trace) if e["ev"] == "pass_done"][0]
     got = _check_reads(out + ".fastq", n_reads)
     ref = _check_reads(cli_out + ".2.fastq", n_reads)
@@ -837,7 +1259,7 @@ def main(argv=None) -> int:
     ap.add_argument("--genome-bp", type=int, default=4_000_000)
     ap.add_argument("--long-reads", type=int, default=256)
     ap.add_argument("--mesh-only", action="store_true",
-                    help="run the kernels, the slice, [mesh] and [sharded] "
+                    help="run the kernels, the slice, [warm], [mesh] and [sharded] "
                     "only (on several cards: one slot per card)")
     args = ap.parse_args(argv)
     if not (ROOT / "ratatosk_tpu_torch" / "csrc").is_dir():
@@ -853,32 +1275,59 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
     phase_build()
     krows = phase_kernels(torch, dev)
-    launches = {}
+    # launches by kernel, then by path
+    launches = {n: {} for n in KERNELS}
+
+    def add(path, counts):
+        for n, c in counts.items():
+            launches[n][path] = c
+
     with tempfile.TemporaryDirectory(prefix="ratatosk_smoke_") as workdir:
         sl = run_slice(dev, args.genome_bp, args.long_reads, workdir, smi)
-        launches["slice"] = sl["launches"]["sprint_rows"]
+        add("slice", sl["launches"])
+        frows = phase_fused_kernels(torch, sl, dev)
+        add("warm", phase_warm(sl, workdir, dev, smi))
         if not args.mesh_only:
-            head, host_fastq = phase_plain_vs_kernel(dev, sl, workdir)
-            launches["devplan"] = phase_devplan(dev, sl, workdir, head,
-                                                host_fastq)
+            head, host_fastq, steps = phase_plain_vs_kernel(dev, sl, workdir)
+            add("plain_steps", {"sprint_rows": steps})
+            phase_trace(sl, workdir)
+            add("devplan", phase_devplan(dev, sl, workdir, head, host_fastq))
         mesh, how = make_slots(torch)
-        launches["mesh"] = phase_mesh(sl, workdir, mesh, how)
-        launches["sharded"] = phase_sharded(sl, workdir, mesh)
+        add("mesh", phase_mesh(sl, workdir, mesh, how))
+        add("sharded", phase_sharded(sl, workdir, mesh))
         if not args.mesh_only:
-            phase_rest(sl, workdir, smi, launches)
+            rest = {}
+            phase_rest(sl, workdir, smi, rest)
+            for path, counts in rest.items():
+                add(path, counts)
     torch.cuda.synchronize()
-    headline = krows[257]
     log(f"[done] {time.time() - t_all:.1f}s on {smi}")
-    print(json.dumps({"kernels": [{
-        "name": "sprint_rows", "route": "cuda",
-        "source": "ratatosk_tpu_torch/csrc/sprint.cu",
-        "replaces": "ratatosk_tpu/ops/sprint_pallas.py:58",
-        "launches": sum(launches.values()),
-        "launches_by_path": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in krows.values()),
-        "ms": headline["ms"], "plain_ms": headline["plain_ms"],
-        "by_width": {str(w): r for w, r in krows.items()},
-    }]}), flush=True)
+
+    def record(name, source, replaces, rows, headline):
+        h = rows[headline]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(launches[name].values()),
+                "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+                "ms": h["ms"], "plain_ms": h["plain_ms"],
+                "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+                "library_ms": None, "headline": headline,
+                "launches_by_path": launches[name],
+                "by_shape": {str(k): r for k, r in rows.items()}}
+
+    # the headline shape of each kernel: the main path's exact bucket
+    # (NT=256, beam W=257); the sprint kernel runs only on the "steps"
+    # route now ([plain]), its launches counted there
+    print(json.dumps({"kernels": [
+        record("fused_beam_search", "ratatosk_tpu_torch/csrc/beam.cu",
+               "ratatosk_tpu/ops/sprint_pallas.py:58",
+               frows["fused_beam_search"], 256),
+        record("finish_bundle_kernel", "ratatosk_tpu_torch/csrc/finish.cu",
+               "ratatosk_tpu/correct/finish.py:153",
+               frows["finish_bundle_kernel"], 256),
+        record("sprint_rows", "ratatosk_tpu_torch/csrc/sprint.cu",
+               "ratatosk_tpu/ops/sprint_pallas.py:58", krows, 257),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

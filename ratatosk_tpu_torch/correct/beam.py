@@ -14,14 +14,19 @@ TPU:
   (score NEG) still take ranks, so losing slots carry their fields;
 - column fetches and parent-row copies are gathers, in place of one-hot
   reductions and matmuls;
-- the step loop and the winner reconstruction are Python loops over device
-  tensors. The all-frozen exit is tested after every step, as the reference's
-  while_loop does (it syncs the host once per step);
+- the step loop and the winner reconstruction of the plain version are
+  Python loops over device tensors. The all-frozen exit is tested after
+  every step, as the reference's while_loop does (it syncs the host once
+  per step);
 - JAX clamps out-of-range gather indices silently and drops out-of-range
   scatter writes; torch raises. Every gather that relies on clamping clamps
   explicitly, and every reconstruction write masks its out-of-range rows;
-- the sprint substeps run in the hand-written kernel (ops/sprint.py) on a
-  CUDA tensor, or in its plain version with sprint_impl="torch".
+- on a CUDA tensor with impl="auto" the whole search runs in the fused
+  beam kernel (ops/beam_kernel.py, csrc/beam.cu): one block per region
+  loops over the branch steps and reconstructs the winner, in two launches
+  and with no host sync per step. beam_search_by_region is the plain
+  version of that control flow. impl="steps" keeps the per-step torch path
+  below, its sprint substeps in the sprint kernel (ops/sprint.py).
 
 The float scores stay separate torch ops, in the reference's order (no
 torch.compile, which could contract them into FMAs).
@@ -174,9 +179,10 @@ def _shift_pair(rwin, delta):
 
 
 def _sprint_advance(g: DeviceGraph, rb: RegionBatch, padded_tgt,
-                    st: BeamState, rec, smax: int, impl: str):
+                    st: BeamState, rec, smax: int, sprint_fn):
     """Advance each region by up to smax-1 deterministic mid-unitig bases
-    (the reference's _sprint_advance, Pallas branch). Returns (state',
+    (the reference's _sprint_advance, Pallas branch) through sprint_fn
+    (ops.sprint.sprint_rows or sprint_rows_ref). Returns (state',
     sbits [R,B], scnt [R,B])."""
     R, B = st.tip.shape
     W = st.rwin.shape[-1]
@@ -218,14 +224,8 @@ def _sprint_advance(g: DeviceGraph, rb: RegionBatch, padded_tgt,
     fetch_j = (wsall[:, 1:] + (W - 1)).clamp_max(nt1 - 1)
     newcols = padded_tgt.gather(1, fetch_j.long()).to(_I32)      # [R, smax-1]
 
-    if impl == "torch":
-        fn = sprint_rows_ref
-    elif impl == "auto":
-        fn = sprint_rows      # the CUDA kernel on a CUDA tensor
-    else:
-        raise ValueError(f"sprint_impl must be 'auto' or 'torch', got {impl!r}")
     livem = live.to(_I32)
-    rwin_n, btgt_n = fn(st.rwin, st.btgt.to(_I32), nb_all.contiguous(),
+    rwin_n, btgt_n = sprint_fn(st.rwin, st.btgt.to(_I32), nb_all.contiguous(),
                         newcols, wsall.contiguous(), m_reg.contiguous(), livem,
                         st.plen.contiguous(), smax=smax)
     adv_n = livem * m_reg[:, None]
@@ -452,21 +452,36 @@ def _beam_step(g: DeviceGraph, rb: RegionBatch, padded_tgt, st: BeamState,
     )
 
 
-def beam_search(g: DeviceGraph, rb: RegionBatch, *, beam: int, lmax: int,
-                min_cov: int = 2, band: int = 0, sprint: int = 8,
-                sprint_impl: str = "auto") -> BeamResult:
-    """band=0 (or >= NT+1) means exact full-row DP; otherwise a W-wide band.
 
-    sprint: max bases an outer step advances per region (1 branch step plus
-    up to sprint-1 mid-unitig bases). sprint_impl: "auto" runs the sprint
-    substeps through ops.sprint.sprint_rows (the CUDA kernel on a CUDA
-    tensor), "torch" through its plain version."""
+
+# beam_search routes: "auto" runs the fused beam kernel (ops/beam_kernel.py)
+# on a CUDA tensor and the plain version on a CPU tensor; "steps" runs the
+# per-step torch path with the sprint kernel (ops/sprint.py:sprint_rows,
+# plain on a CPU tensor); "torch" runs the plain version throughout
+IMPLS = ("auto", "steps", "torch")
+
+
+def check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def _check_widths(beam: int, sprint: int) -> None:
     if not 1 <= sprint <= 8:
         raise ValueError("sprint bases must fit the 14-bit hist field")
     if beam > 128:
         raise ValueError("beam must fit the 7-bit hist parent field")
-    R, NT = rb.tgt_masks.shape
-    W = NT + 1 if band <= 0 or band >= NT + 1 else band
+
+
+def band_width(nt: int, band: int) -> int:
+    """The beam's DP band W: the full row (NT+1) when band is 0 or covers
+    it, else band."""
+    return nt + 1 if band <= 0 or band >= nt + 1 else band
+
+
+def _init_state(rb: RegionBatch, beam: int, lmax: int, W: int):
+    """(step-0 state, padded target masks [R, NT+1])."""
+    R = rb.tgt_masks.shape[0]
     dev = rb.tgt_masks.device
     slot0 = (torch.arange(beam, device=dev) == 0)[None, :].expand(R, beam)
     # initial window at ws(0)=0: row 0 is E[0][j] = j (NW boundary)
@@ -504,17 +519,41 @@ def beam_search(g: DeviceGraph, rb: RegionBatch, *, beam: int, lmax: int,
         ccsum=full((R, beam), 0.0, torch.float32),
         nvis=full((R, beam), 0),
     )
+    return st, padded_tgt
 
-    # step loop with the all-frozen exit, tested after every step
-    T = 0
-    while T < lmax and bool((st.live & ~st.frozen).any()):
-        uid = (st.tip >> 1).clamp(0, g.utbl.shape[0] - 1).long()
-        rec = g.utbl[uid, (st.tip & 1).long()]     # [R, B, 6]
-        st, sbits, scnt = _sprint_advance(g, rb, padded_tgt, st, rec, sprint,
-                                          sprint_impl)
-        st = _beam_step(g, rb, padded_tgt, st, T, min_cov, rec, sbits, scnt)
-        T += 1
 
+def _step(g: DeviceGraph, rb: RegionBatch, padded_tgt, st: BeamState, i: int,
+          *, min_cov: int, smax: int, sprint_fn) -> BeamState:
+    """Branch step i: the sprint substeps, then the branch step."""
+    uid = (st.tip >> 1).clamp(0, g.utbl.shape[0] - 1).long()
+    rec = g.utbl[uid, (st.tip & 1).long()]     # [R, B, 6]
+    st, sbits, scnt = _sprint_advance(g, rb, padded_tgt, st, rec, smax,
+                                      sprint_fn)
+    return _beam_step(g, rb, padded_tgt, st, i, min_cov, rec, sbits, scnt)
+
+
+def _run_steps(g: DeviceGraph, rb: RegionBatch, padded_tgt, st: BeamState,
+               t0: int, t_stop: int, *, until_frozen: bool, **kw):
+    """Steps t0, t0+1, ... before t_stop; with until_frozen, also stop
+    before a step once no entry of the batch is live and unfrozen (the
+    reference's while_loop test: one host sync per step). Returns (state,
+    the step index reached)."""
+    t = t0
+    while t < t_stop:
+        if until_frozen and not bool((st.live & ~st.frozen).any()):
+            break
+        st = _step(g, rb, padded_tgt, st, t, **kw)
+        t += 1
+    return st, t
+
+
+def _pick_and_reconstruct(rb: RegionBatch, st: BeamState, T: int, *,
+                          lmax: int, smax: int) -> BeamResult:
+    """The final pick after T steps, and the winner's path from the
+    backpointer history. Regions without a completed path walk back from
+    step T-1, so the result depends on the launch-wide T."""
+    R, beam = st.tip.shape
+    dev = st.tip.device
     # completed regions read the scoreboard; the others fall back to the
     # best partial entry
     has_c = st.cnum > 0
@@ -552,7 +591,7 @@ def beam_search(g: DeviceGraph, rb: RegionBatch, *, beam: int, lmax: int,
 
     seed_pos = (st.cplen - 1).clamp(0, lmax - 1)
     put(seed_pos, has_c & (st.cplen > 0), (st.ccand & 3).to(torch.uint8))
-    for jj in range(sprint - 1):
+    for jj in range(smax - 1):
         p = (st.cplen - 1 - st.cscnt + jj).clamp(0, lmax - 1)
         put(p, has_c & (jj < st.cscnt),
             ((st.csbits >> (2 * jj)) & 3).to(torch.uint8))
@@ -571,7 +610,7 @@ def beam_search(g: DeviceGraph, rb: RegionBatch, *, beam: int, lmax: int,
         # sprint bases precede the branch base: written backward
         hscnt = torch.where(act, (hsel >> 10) & 7, 0)
         hsbits = (hsel >> 13) & 0x3FFF
-        for jj in range(sprint - 1):
+        for jj in range(smax - 1):
             m = (jj < hscnt) & (rem > 0)
             sh = (2 * (hscnt - 1 - jj)).clamp_min(0)
             put((rem - 1).clamp_min(0), m,
@@ -591,3 +630,77 @@ def beam_search(g: DeviceGraph, rb: RegionBatch, *, beam: int, lmax: int,
         completed=has_c,
         n_done=st.cnum,
     )
+
+
+def beam_search(g: DeviceGraph, rb: RegionBatch, *, beam: int, lmax: int,
+                min_cov: int = 2, band: int = 0, sprint: int = 8,
+                impl: str = "auto") -> BeamResult:
+    """band=0 (or >= NT+1) means exact full-row DP; otherwise a W-wide band.
+
+    sprint: max bases an outer step advances per region (1 branch step plus
+    up to sprint-1 mid-unitig bases). impl (IMPLS): "auto" runs the fused
+    beam kernel on a CUDA tensor (two kernel launches, no host sync per
+    step) and the plain version on a CPU tensor; "steps" runs the steps in
+    torch with the sprint substeps through ops.sprint.sprint_rows (the
+    sprint kernel on a CUDA tensor); "torch" is plain throughout.
+
+    Steps run until no entry of the launch is live and unfrozen, or lmax:
+    init, steps, then the pick and reconstruction."""
+    check_impl(impl)
+    _check_widths(beam, sprint)
+    if impl == "auto":
+        from ratatosk_tpu_torch.ops.beam_kernel import fused_beam_search
+        return fused_beam_search(g, rb, beam=beam, lmax=lmax, min_cov=min_cov,
+                                 band=band, sprint=sprint)
+    W = band_width(rb.tgt_masks.shape[1], band)
+    st, padded_tgt = _init_state(rb, beam, lmax, W)
+    st, T = _run_steps(g, rb, padded_tgt, st, 0, lmax, until_frozen=True,
+                       min_cov=min_cov, smax=sprint,
+                       sprint_fn=sprint_rows if impl == "steps"
+                       else sprint_rows_ref)
+    return _pick_and_reconstruct(rb, st, T, lmax=lmax, smax=sprint)
+
+
+def _rows(rb: RegionBatch, r: int) -> RegionBatch:
+    return RegionBatch(**{f.name: getattr(rb, f.name)[r:r + 1]
+                          for f in dataclasses.fields(RegionBatch)})
+
+
+def beam_search_by_region(g: DeviceGraph, rb: RegionBatch, *, beam: int,
+                          lmax: int, min_cov: int = 2, band: int = 0,
+                          sprint: int = 8) -> BeamResult:
+    """The fused kernel's control flow in plain torch, one region at a time.
+
+    Phase 1 runs each region alone until none of its entries is live and
+    unfrozen, or lmax: f_r steps. T = max_r f_r is the launch's step count.
+    Phase 2 continues each region from step f_r to T (a frozen region's
+    entries can still be re-ranked and its history grows), then every
+    region picks and reconstructs with that T. Equal to beam_search, field
+    for field, because regions share nothing but T."""
+    _check_widths(beam, sprint)
+    R, NT = rb.tgt_masks.shape
+    W = band_width(NT, band)
+    kw = dict(min_cov=min_cov, smax=sprint, sprint_fn=sprint_rows_ref)
+    parts = []
+    for r in range(R):
+        rb_r = _rows(rb, r)
+        st, padded_tgt = _init_state(rb_r, beam, lmax, W)
+        st, f_r = _run_steps(g, rb_r, padded_tgt, st, 0, lmax,
+                             until_frozen=True, **kw)
+        parts.append((rb_r, padded_tgt, st, f_r))
+    T = max((p[3] for p in parts), default=0)
+    outs = []
+    for rb_r, padded_tgt, st, f_r in parts:
+        st, _ = _run_steps(g, rb_r, padded_tgt, st, f_r, T,
+                           until_frozen=False, **kw)
+        outs.append(_pick_and_reconstruct(rb_r, st, T, lmax=lmax,
+                                          smax=sprint))
+    dev = rb.tgt_masks.device
+    if not outs:
+        return BeamResult(
+            best_seq=torch.zeros((0, lmax), dtype=torch.uint8, device=dev),
+            **{f: torch.zeros(0, dtype=torch.bool if f == "completed"
+                              else _I32, device=dev)
+               for f in FIELDS if f != "best_seq"})
+    return BeamResult(**{f: torch.cat([getattr(o, f) for o in outs])
+                         for f in FIELDS})

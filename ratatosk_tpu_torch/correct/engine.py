@@ -18,8 +18,10 @@ between the best and runner-up candidate path.
 Port of ratatosk_tpu/correct/engine.py: the host planning and assembly are
 the reference's code unchanged. The device parts are rewritten for torch:
 `_launch_bucket` packs a launch's regions on the host (`region_arrays`),
-uploads one tensor per field, runs the beam and the finish bundle eagerly, and
-`_execute_regions` reads the two result arrays back with `.cpu()`; the
+uploads one tensor per field, enqueues the beam and the finish bundle (on a
+CUDA device: the fused beam kernel's two launches and the finish kernel's
+one, with no host sync between them), and `_execute_regions` reads the two
+result arrays back with `.cpu()`; the
 device planner (`plan_on_device`) runs in plain torch on the same device.
 With a mesh of several slots (parallel/mesh.py) the graph is replicated per
 device and every launch splits its rows over the slots, each slot on its own
@@ -50,6 +52,7 @@ from ratatosk_tpu_torch.graph.build import Cdbg
 from ratatosk_tpu_torch.graph.colors import GraphColors
 from ratatosk_tpu_torch.ops import cigar as CG
 from ratatosk_tpu_torch.ops import colorset as CS
+from ratatosk_tpu_torch.ops.finish_kernel import finish_bundle_kernel
 from ratatosk_tpu_torch.parallel import mesh as M
 
 # target-length buckets = jit shapes. Three are enough: <=256 runs the exact
@@ -66,13 +69,17 @@ _NEAR_EXACT_SKIP = 16
 
 
 def _beam_finish(g, rb, qv_max, min_k, *, beam, lmax, min_cov, band, w,
-                 min_score_open, sprint_impl="auto"):
+                 min_score_open, impl="auto"):
     """Beam search + chained finish bundle: one launch's device work, ending
-    in the two arrays the host reads back."""
+    in the two arrays the host reads back. On a CUDA device with
+    impl="auto" that is two beam-kernel launches and one finish-kernel
+    launch on the current stream, with no host sync in between; "steps"
+    and "torch" run the plain finish (beam.IMPLS)."""
     res = BM.beam_search(g, rb, beam=beam, lmax=lmax, min_cov=min_cov,
-                         band=band, sprint_impl=sprint_impl)
-    return FN.finish_bundle(rb.tgt_masks, rb.tgt_len, rb.tgt_qual, qv_max,
-                            min_k, res, w=w, min_score_open=min_score_open)
+                         band=band, impl=impl)
+    finish = finish_bundle_kernel if impl == "auto" else FN.finish_bundle
+    return finish(rb.tgt_masks, rb.tgt_len, rb.tgt_qual, qv_max, min_k, res,
+                  w=w, min_score_open=min_score_open)
 
 
 def region_arrays(specs: List["RegionSpec"], nt: int, color_cap: int, *,
@@ -208,13 +215,15 @@ class CorrectedRead:
 class Corrector:
     def __init__(self, cdbg: Cdbg, colors: GraphColors,
                  opt: Optional[CorrectOpt] = None, hap=None, snps=None,
-                 mesh=None, *, device=None, sprint_impl: str = "auto"):
+                 mesh=None, *, device=None, impl: str = "auto"):
         """device: where the graph lives and every launch runs (given by the
         caller; nothing falls back to another device); with a mesh it
         defaults to the mesh's first slot. mesh (parallel.mesh.Mesh): with
-        several slots, every launch splits its rows over them. sprint_impl:
-        "auto" runs the beam's sprint substeps through the hand-written
-        kernel on a CUDA device, "torch" through its plain version."""
+        several slots, every launch splits its rows over them. impl
+        (correct.beam.IMPLS): "auto" runs each launch through the fused beam
+        and finish kernels on a CUDA device, "steps" the per-step beam with
+        the sprint kernel, "torch" the plain versions."""
+        BM.check_impl(impl)
         if device is None and mesh is None:
             raise TypeError("Corrector needs device= or mesh=")
         self.cdbg = cdbg
@@ -233,7 +242,7 @@ class Corrector:
             self.sharded = ShardedKmerIndex(cdbg.index, mesh)
         self.device = (torch.device(device) if device is not None
                        else mesh.devices[0])
-        self.sprint_impl = sprint_impl
+        self.impl = impl
         self.g = DeviceGraph.from_host(cdbg, colors, self.device)
         # multi-device execution: with a mesh of several slots the graph is
         # replicated per device and every region batch splits over the
@@ -737,7 +746,7 @@ class Corrector:
         kw = dict(beam=beam or self.opt.beam_width, lmax=lmax,
                   min_cov=self.opt.min_cov_vertices, band=band, w=band,
                   min_score_open=self.opt.min_score_open_region,
-                  sprint_impl=self.sprint_impl)
+                  impl=self.impl)
         def host(fin):
             return fin.scalars.cpu().numpy(), fin.seq_packed.cpu().numpy()
 
@@ -761,9 +770,9 @@ class Corrector:
         PyTorch itself compiles nothing), and pin the device planner's pad
         tier at the production batch size."""
         devs = self.mesh.devices if self.mesh is not None else [self.device]
-        if self.sprint_impl == "auto" and any(d.type == "cuda" for d in devs):
-            from ratatosk_tpu_torch.ops import sprint
-            sprint.build_library()
+        if self.impl != "torch" and any(d.type == "cuda" for d in devs):
+            from ratatosk_tpu_torch.ops import cuda_lib
+            cuda_lib.library()
         if self.devplan is not None:
             self.devplan.warmup(self.opt.read_batch_bp,
                                 stride=self.opt.weak_seed_stride,

@@ -1,0 +1,140 @@
+"""The fused beam search: the hand-written CUDA kernel (csrc/beam.cu) that
+runs a launch's whole beam search on the card, and its wrapper.
+
+`fused_beam_search` takes what correct.beam.beam_search takes and returns
+the same BeamResult. On a CPU tensor it runs the plain version
+(beam_search with impl="torch"); on a CUDA tensor it launches the kernel or
+raises. Nothing falls back from the card.
+
+The kernel replaces the Pallas TPU kernel of the sprint substeps
+(ratatosk_tpu/ops/sprint_pallas.py) on this route, together with the plain
+JAX around it: the branch step, the all-frozen loop and the winner
+reconstruction (ratatosk_tpu/correct/beam.py:beam_search). One block per
+region loops over the branch steps. The reference steps every region of a
+launch until none of them has a live, unfrozen entry, so a region's result
+depends on the launch-wide step count T (correct.beam.beam_search_by_region
+is the plain version of this decomposition). Two launches on one stream
+realise it with no host sync: launch 1 runs each region to its own
+all-frozen step f_r, saves its state to scratch and raises T to f_r with an
+atomic max; launch 2 reads T, runs the steps f_r..T-1, picks and
+reconstructs. The wrapper allocates all scratch with torch.empty: the saved
+state, the double-buffered band rows [R, 2, B, W] and the history [R, lmax,
+B] (264 MB at bucket 5376 and B=16; 2.1 GB at B=128).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ratatosk_tpu_torch.ops import cuda_lib
+
+# the pointer table of csrc/beam.cu's beam_search_launch, in its order
+PTRS = ("useq", "utbl", "color_sig",
+        "tgt_masks", "tgt_len", "start_tip", "start_off", "end_tip",
+        "end_off", "colors_sig", "colors_wsig", "max_plen", "end_cyclic",
+        "state", "rows", "hist", "t_launch", "f_steps",
+        "best_seq", "best_len", "best_dist", "best_end", "second_dist",
+        "completed", "n_done")
+# its int table
+INTS = ("R", "NT", "B", "W", "lmax", "k", "min_cov", "smax", "n_useq",
+        "n_utbl", "n_sig", "H", "state_words")
+
+_RB_TYPES = dict(tgt_masks=torch.uint8, tgt_len=torch.int32,
+                 start_tip=torch.int32, start_off=torch.int32,
+                 end_tip=torch.int32, end_off=torch.int32,
+                 colors_sig=torch.int8, colors_wsig=torch.int8,
+                 max_plen=torch.int32, end_cyclic=torch.bool)
+
+
+def state_words(B: int, W: int) -> int:
+    """int32 words of one region's saved state between the two launches:
+    11 per beam entry, 32 region scalars, the W-wide target window."""
+    return 11 * B + 32 + W
+
+
+@cuda_lib.counted
+def fused_beam_search(g, rb, *, beam: int, lmax: int, min_cov: int = 2,
+                      band: int = 0, sprint: int = 8):
+    """correct.beam.beam_search in the fused kernel (two launches on the
+    current stream); a CPU tensor takes the plain version."""
+    from ratatosk_tpu_torch.correct import beam as BM
+    dev = rb.tgt_masks.device
+    if dev.type == "cpu":
+        return BM.beam_search(g, rb, beam=beam, lmax=lmax, min_cov=min_cov,
+                              band=band, sprint=sprint, impl="torch")
+    if dev.type != "cuda":
+        raise ValueError(f"fused_beam_search: no kernel for device {dev}")
+    R, NT = rb.tgt_masks.shape
+    B, W = beam, BM.band_width(NT, band)
+    fn = "fused_beam_search"
+    for name, dt in _RB_TYPES.items():
+        t = getattr(rb, name)
+        shape = ((R, NT) if name == "tgt_masks" else
+                 (R, t.shape[-1]) if name in ("colors_sig", "colors_wsig")
+                 else (R,))
+        cuda_lib.check_tensor(fn, name, t, dt, shape, dev)
+    cuda_lib.check_tensor(fn, "useq", g.useq, torch.uint8, None, dev)
+    cuda_lib.check_tensor(fn, "utbl", g.utbl, torch.int32,
+                          (g.utbl.shape[0], 2, 6), dev)
+    cuda_lib.check_tensor(fn, "color_sig", g.color_sig, torch.int8, None, dev)
+    H = g.color_sig.shape[-1]
+    if g.color_sig.dim() != 2 or rb.colors_sig.shape[1] != H \
+            or rb.colors_wsig.shape[1] != H:
+        raise ValueError(f"fused_beam_search: color signatures of "
+                         f"{H} bins and {rb.colors_sig.shape[1]} disagree")
+    lib = cuda_lib.library()
+    if not (1 <= W <= lib.beam_search_max_width() and 1 <= B <= 128
+            and 1 <= sprint <= 8 and lmax >= 1 and NT >= 1
+            and g.utbl.shape[0] >= 1 and g.color_sig.shape[0] >= 1
+            and g.useq.numel() >= 1):
+        raise ValueError(f"fused_beam_search: unsupported shape R={R} NT={NT}"
+                         f" B={B} W={W} lmax={lmax} sprint={sprint}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return enqueue(lib, g, rb, beam=B, W=W, lmax=lmax, min_cov=min_cov,
+                   sprint=sprint, index=cuda_lib.device_index(dev),
+                   stream=stream,
+                   counted=lambda: cuda_lib.add_launches(fused_beam_search,
+                                                         stream))
+
+
+def enqueue(lib, g, rb, *, beam, W, lmax, min_cov, sprint, index, stream,
+            counted):
+    """Allocate the outputs and scratch beside rb's tensors and enqueue the
+    kernel's two launches on CUDA device `index`, stream `stream` (checked
+    inputs; counted() after each launch). Returns the BeamResult."""
+    from ratatosk_tpu_torch.correct import beam as BM
+    dev = rb.tgt_masks.device
+    R, NT = rb.tgt_masks.shape
+    B = beam
+
+    def empty(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = dict(best_seq=empty((R, lmax), torch.uint8), best_len=empty(R),
+               best_dist=empty(R), best_end=empty(R), second_dist=empty(R),
+               completed=empty(R, torch.bool), n_done=empty(R))
+    if R == 0:
+        return BM.BeamResult(**out)
+    sw = state_words(B, W)
+    arrays = dict(
+        useq=g.useq, utbl=g.utbl, color_sig=g.color_sig,
+        **{name: getattr(rb, name) for name in _RB_TYPES},
+        state=empty((R, sw)), rows=empty((R, 2, B, W)),
+        hist=empty((R, lmax, B)),
+        t_launch=torch.zeros(1, dtype=torch.int32, device=dev),
+        f_steps=empty(R), **out)
+    ints = dict(R=R, NT=NT, B=B, W=W, lmax=lmax, k=g.k, min_cov=min_cov,
+                smax=sprint, n_useq=g.useq.numel(), n_utbl=g.utbl.shape[0],
+                n_sig=g.color_sig.shape[0], H=g.color_sig.shape[1],
+                state_words=sw)
+    ptrs = cuda_lib.pointer_table([arrays[n] for n in PTRS])
+    vals = cuda_lib.int_table([ints[n] for n in INTS])
+    for phase in (1, 2):
+        err = lib.beam_search_launch(ptrs, len(PTRS), vals, len(INTS), phase,
+                                     index, stream)
+        if err != 0:
+            raise RuntimeError(f"beam kernel launch {phase} failed: CUDA "
+                               f"error {err} (R={R} NT={NT} B={B} W={W} "
+                               f"lmax={lmax})")
+        counted()
+    return BM.BeamResult(**out)

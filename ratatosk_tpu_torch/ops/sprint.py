@@ -7,36 +7,17 @@ row updates of the E-transformed banded edit DP and returns (rwin', btgt').
 
 A CPU tensor goes to `sprint_rows_ref`, the plain version. A CUDA tensor
 launches the kernel, or raises: nothing falls back from the card. The kernel
-library is built with nvcc from `ratatosk_tpu_torch/csrc/*.cu` at first use,
-into `ratatosk_tpu_torch/build/`, and rebuilt when a source changes.
+library is built and loaded by ops/cuda_lib.py. The beam search launches this
+kernel on its `impl="steps"` route, once per branch step.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Optional
-
 import torch
 
+from ratatosk_tpu_torch.ops import cuda_lib
+
 BIG = 1 << 20
-
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SRC_DIR = _PKG_DIR / "csrc"
-BUILD_DIR = _PKG_DIR / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib: Optional[ctypes.CDLL] = None
-# mesh slots launch from several threads at once: the first launches must
-# build and load the library once, and the counts add up
-_lib_lock = threading.Lock()
-_count_lock = threading.Lock()
 
 
 def sprint_rows_ref(rwin, btgt, nb_all, newcols, wsall, m_reg, live, plen, *,
@@ -70,75 +51,7 @@ def sprint_rows_ref(rwin, btgt, nb_all, newcols, wsall, m_reg, live, plen, *,
     return rwin, btgt
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the sprint kernel "
-                           "is built from source at first use")
-    return found
-
-
-def build_library() -> Path:
-    """Compile csrc/*.cu into one shared library, named by the hash of the
-    sources and flags, unless it exists already. Raises with nvcc's stderr
-    when the build fails; the compiler's register/spill report is kept
-    beside the library (.log)."""
-    sources = sorted(SRC_DIR.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    out = BUILD_DIR / f"libratatosk_kernels_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # processes sharing a checkout may build at once: each writes its own
-    # file and the last rename wins (the builds are identical)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-def _library() -> ctypes.CDLL:
-    """The kernel library, built and loaded once per process."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            lib.sprint_rows_launch.restype = ctypes.c_int
-            lib.sprint_rows_launch.argtypes = (
-                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                + [ctypes.c_void_p])
-            lib.sprint_rows_max_width.restype = ctypes.c_int
-            lib.sprint_rows_max_width.argtypes = []
-            _lib = lib
-        return _lib
-
-
-def _check(name, t, shape, device):
-    if t.device != device:
-        raise ValueError(f"sprint_rows: {name} is on {t.device}, rwin on "
-                         f"{device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"sprint_rows: {name} must be int32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"sprint_rows: {name} has shape {tuple(t.shape)}, "
-                         f"expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"sprint_rows: {name} must be contiguous")
-
-
+@cuda_lib.counted
 def sprint_rows(rwin, btgt, nb_all, newcols, wsall, m_reg, live, plen, *,
                 smax: int):
     """Run the smax-1 masked band-row updates of one sprint.
@@ -161,8 +74,8 @@ def sprint_rows(rwin, btgt, nb_all, newcols, wsall, m_reg, live, plen, *,
             ("nb_all", nb_all, (R, B, S1)), ("newcols", newcols, (R, S1)),
             ("wsall", wsall, (R, smax)), ("m_reg", m_reg, (R,)),
             ("live", live, (R, B)), ("plen", plen, (R, B))):
-        _check(name, t, shape, dev)
-    lib = _library()
+        cuda_lib.check_tensor("sprint_rows", name, t, torch.int32, shape, dev)
+    lib = cuda_lib.library()
     if not (1 <= W <= lib.sprint_rows_max_width()) or S1 < 1 or B < 1:
         raise ValueError(f"sprint_rows: unsupported shape R={R} B={B} W={W} "
                          f"smax={smax}")
@@ -176,19 +89,9 @@ def sprint_rows(rwin, btgt, nb_all, newcols, wsall, m_reg, live, plen, *,
         newcols.data_ptr(), wsall.data_ptr(), m_reg.data_ptr(),
         live.data_ptr(), plen.data_ptr(), rwin_out.data_ptr(),
         btgt_out.data_ptr(), R, B, W, S1,
-        torch.cuda.current_device() if dev.index is None else dev.index,
-        stream)
+        cuda_lib.device_index(dev), stream)
     if err != 0:
         raise RuntimeError(f"sprint_rows kernel launch failed: CUDA error "
                            f"{err} (R={R} B={B} W={W} smax={smax})")
-    with _count_lock:
-        sprint_rows.launches += 1
-        by = sprint_rows.launches_by_stream
-        by[stream] = by.get(stream, 0) + 1
+    cuda_lib.add_launches(sprint_rows, stream)
     return rwin_out, btgt_out
-
-
-# kernel launches, in all and per raw CUDA stream handle (a mesh slot's
-# share: Mesh.stream(i).cuda_stream)
-sprint_rows.launches = 0
-sprint_rows.launches_by_stream = {}

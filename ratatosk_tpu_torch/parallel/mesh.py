@@ -10,12 +10,13 @@ is an ordered tuple of torch devices, its *slots*. A device may repeat
 split, the replicas and the gather as several cards would.
 
 Every slot runs its share of a launch on its own worker thread, under its
-own CUDA stream (`SlotPool`). The beam search syncs with the host once per
-branch step, so slots issued one after another from one thread would run
-one after another. The Corrector and sharded_beam_search split a launch
-the same way (SlotPool.submit_rows, then gather): a slot's upload, launch
-and read-back all happen inside its thread, on its stream, and it returns
-NumPy, so no tensor crosses streams. Rows are independent, so the gathered
+own CUDA stream (`SlotPool`). The plain beam search ("steps", "torch")
+syncs with the host once per branch step, so slots driven from one thread
+would run one after another; the fused kernels ("auto") enqueue a launch
+whole, and the slot's thread then waits in its read-back. The Corrector
+and sharded_beam_search split a launch the same way (SlotPool.submit_rows,
+then gather): a slot's upload, launch and read-back all happen inside its
+thread, on its stream, and it returns NumPy, so no tensor crosses streams. Rows are independent, so the gathered
 result equals one device's.
 """
 
@@ -211,7 +212,7 @@ def pad_regions_to(rb: BM.RegionBatch, r_pad: int) -> BM.RegionBatch:
 
 def sharded_beam_search(g: DeviceGraph, rb: BM.RegionBatch, mesh: Mesh, *,
                         beam: int, lmax: int, min_cov: int = 2, band: int = 0,
-                        sprint_impl: str = "auto") -> BM.BeamResult:
+                        impl: str = "auto") -> BM.BeamResult:
     """beam_search with the regions split over the mesh's slots and the
     graph replicated: every slot searches its rows at the same time. The
     result is gathered on slot 0's device, in row order."""
@@ -224,7 +225,7 @@ def sharded_beam_search(g: DeviceGraph, rb: BM.RegionBatch, mesh: Mesh, *,
     def slot(dev, rows):
         res = BM.beam_search(graphs[dev], region_rows(rb, rows, dev),
                              beam=beam, lmax=lmax, min_cov=min_cov,
-                             band=band, sprint_impl=sprint_impl)
+                             band=band, impl=impl)
         return tuple(getattr(res, f).cpu().numpy() for f in BM.FIELDS)
 
     with SlotPool(mesh) as pool:

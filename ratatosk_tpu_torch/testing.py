@@ -95,7 +95,7 @@ def error_rate(a: np.ndarray, b: np.ndarray) -> float:
 def build_toy_corrector(seed: int = 0, glen: int = 6000, k: int = 17,
                         coverage: float = 30.0,
                         opt: Optional[CorrectOpt] = None, *, device,
-                        sprint_impl: str = "auto"):
+                        impl: str = "auto"):
     """Tiny colored cDBG + Corrector on `device`."""
     rng = np.random.default_rng(seed)
     genome = random_genome(rng, glen, repeat_frac=0.1, repeat_len=120)
@@ -104,7 +104,7 @@ def build_toy_corrector(seed: int = 0, glen: int = 6000, k: int = 17,
     colors = color_graph(cdbg, sreads)
     opt = opt or CorrectOpt(small_k=k, k=63, beam_width=8, batch_regions=32)
     return genome, Corrector(cdbg, colors, opt, device=device,
-                             sprint_impl=sprint_impl)
+                             impl=impl)
 
 
 def toy_region_specs(corr: Corrector, genome: np.ndarray, rng,

@@ -35,6 +35,62 @@ def test_finish_bundle_matches_jax(case):
                                   np.asarray(want.seq_packed))
 
 
+@pytest.mark.parametrize("case", list(TP.CASES))
+def test_finish_bundle_ignores_masks_past_tgt_len(case):
+    """Random masks written into tgt_masks past each region's tgt_len (the
+    engine's batches hold zeros there) change neither package's decisions:
+    the finish kernel stops at tgt_len and must not depend on them."""
+    corr, jrb, lmax, band, res = TP.beam_case(case)
+    k = corr.cdbg.k
+    masks = np.asarray(jrb.tgt_masks).copy()
+    rng = np.random.default_rng(11)
+    for r, n in enumerate(np.asarray(jrb.tgt_len)):
+        masks[r, n:] = 1 << rng.integers(0, 4, masks.shape[1] - n)
+    assert (masks != np.asarray(jrb.tgt_masks)).any()
+    want = JFN.finish_bundle(jnp.asarray(masks), jrb.tgt_len, jrb.tgt_qual,
+                             jnp.int32(QV_MAX), jnp.int32(k), res, w=band,
+                             min_score_open=MIN_SCORE_OPEN)
+    trb = TP.to_torch_regions(jrb)
+    tres = TBM.BeamResult(**{f: torch.tensor(np.asarray(getattr(res, f)))
+                             for f in TBM.FIELDS})
+    got = TFN.finish_bundle(torch.tensor(masks), trb.tgt_len, trb.tgt_qual,
+                            QV_MAX, k, tres, w=band,
+                            min_score_open=MIN_SCORE_OPEN)
+    clean = TFN.finish_bundle(trb.tgt_masks, trb.tgt_len, trb.tgt_qual,
+                              QV_MAX, k, tres, w=band,
+                              min_score_open=MIN_SCORE_OPEN)
+    np.testing.assert_array_equal(got.scalars.numpy(),
+                                  np.asarray(want.scalars))
+    np.testing.assert_array_equal(got.scalars.numpy(), clean.scalars.numpy())
+    np.testing.assert_array_equal(got.seq_packed.numpy(),
+                                  np.asarray(want.seq_packed))
+
+
+def test_finish_kernel_wrapper_takes_the_plain_version_on_cpu():
+    """On CPU tensors finish_bundle_kernel is finish_bundle (no launch); any
+    other device gets the kernel or an error."""
+    from ratatosk_tpu_torch.ops.finish_kernel import finish_bundle_kernel
+    corr, jrb, lmax, band, res = TP.beam_case("nt512_band192")
+    trb = TP.to_torch_regions(jrb)
+    tres = TBM.BeamResult(**{f: torch.tensor(np.asarray(getattr(res, f)))
+                             for f in TBM.FIELDS})
+    args = (trb.tgt_masks, trb.tgt_len, trb.tgt_qual, QV_MAX, corr.cdbg.k,
+            tres)
+    kw = dict(w=band, min_score_open=MIN_SCORE_OPEN)
+    before = finish_bundle_kernel.launches
+    got = finish_bundle_kernel(*args, **kw)
+    assert finish_bundle_kernel.launches == before
+    want = TFN.finish_bundle(*args, **kw)
+    assert torch.equal(got.scalars, want.scalars)
+    assert torch.equal(got.seq_packed, want.seq_packed)
+    meta = TBM.BeamResult(**{f: getattr(tres, f).to("meta")
+                             for f in TBM.FIELDS})
+    with pytest.raises(ValueError, match="no kernel"):
+        finish_bundle_kernel(trb.tgt_masks.to("meta"),
+                             trb.tgt_len.to("meta"),
+                             trb.tgt_qual.to("meta"), QV_MAX, 21, meta, **kw)
+
+
 def test_pack_unpack_roundtrip():
     codes = np.random.default_rng(5).integers(0, 4, (3, 37)).astype(np.uint8)
     packed = TFN.pack_codes(torch.tensor(codes))

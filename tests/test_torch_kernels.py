@@ -1,0 +1,239 @@
+"""The fused beam kernel (ops/beam_kernel.py, csrc/beam.cu) and the finish
+kernel (ops/finish_kernel.py, csrc/finish.cu) against their plain PyTorch
+versions, on region batches planned from reads by ratatosk_tpu_torch.testing
+(no JAX, so the card's cases run where JAX is not installed). Every
+comparison is exact: tolerance 0.
+
+The kernels run only on a card: those cases are marked `cuda` and skip where
+torch sees no CUDA device:
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+On the CPU the same batches check that every impl route gives one result.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from ratatosk_tpu_torch import testing
+from ratatosk_tpu_torch.config import CorrectOpt
+from ratatosk_tpu_torch.correct import beam as BM
+from ratatosk_tpu_torch.correct import finish as FN
+from ratatosk_tpu_torch.correct.engine import region_arrays
+from ratatosk_tpu_torch.ops.beam_kernel import fused_beam_search
+from ratatosk_tpu_torch.ops.finish_kernel import finish_bundle_kernel
+
+# (NT, band) of the engine's three buckets (engine._launch_bucket): the
+# exact 256 bucket (beam W=257, finish W=lmax+1=389), then bands of 192 and
+# 336 (finish w the same)
+BUCKETS = {257: (256, 0), 192: (2048, 192), 336: (5376, 336)}
+QV_MAX, MIN_SCORE_OPEN = 40, 0.6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _specs():
+    opt = CorrectOpt(small_k=21, k=63, beam_width=8, batch_regions=32)
+    genome, corr = testing.build_toy_corrector(seed=7, glen=20000, k=21,
+                                               opt=opt, device="cpu")
+    specs = testing.toy_region_specs(corr, genome,
+                                     np.random.default_rng(7), 24)
+    return corr, specs
+
+
+def region_batch(W: int, device, r_pad: int = 32):
+    """(graph, RegionBatch, lmax, band) of the bucket whose beam band is W,
+    planned regions padded to r_pad rows as the engine pads them."""
+    nt, band = BUCKETS[W]
+    corr, specs = _specs()
+    specs = [s for s in specs if len(s.tgt) <= nt][:r_pad]
+    arrays, lmax = region_arrays(specs, nt, corr.colors.cap, r_pad=r_pad)
+    return (corr.g.to(device), BM.RegionBatch.from_numpy(arrays, device),
+            lmax, band)
+
+
+def _finish(fn, rb, res, band, k=21):
+    return fn(rb.tgt_masks, rb.tgt_len, rb.tgt_qual, QV_MAX, k, res, w=band,
+              min_score_open=MIN_SCORE_OPEN)
+
+
+@pytest.mark.parametrize("impl", ["auto", "steps"])
+def test_routes_agree_on_cpu(impl, W=192):
+    """On CPU tensors every impl route runs the plain version: one result,
+    no kernel launch, and the finish wrapper equals finish_bundle."""
+    g, rb, lmax, band = region_batch(W, "cpu", r_pad=16)
+    before = fused_beam_search.launches, finish_bundle_kernel.launches
+    a = BM.beam_search(g, rb, beam=8, lmax=lmax, band=band, impl=impl)
+    b = BM.beam_search(g, rb, beam=8, lmax=lmax, band=band, impl="torch")
+    for f in BM.FIELDS:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert b.completed.any(), "fixture must complete regions"
+    fa = _finish(finish_bundle_kernel, rb, a, band)
+    fb = _finish(FN.finish_bundle, rb, b, band)
+    assert torch.equal(fa.scalars, fb.scalars)
+    assert torch.equal(fa.seq_packed, fb.seq_packed)
+    assert (fused_beam_search.launches,
+            finish_bundle_kernel.launches) == before
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 128])
+@pytest.mark.parametrize("W", [257, 192, 336])
+def test_fused_beam_kernel_matches_plain_on_card(cuda_device, W, B):
+    g, rb, lmax, band = region_batch(W, cuda_device)
+    before = fused_beam_search.launches
+    got = BM.beam_search(g, rb, beam=B, lmax=lmax, band=band, impl="auto")
+    torch.cuda.synchronize()
+    assert fused_beam_search.launches == before + 2
+    want = BM.beam_search(g, rb, beam=B, lmax=lmax, band=band, impl="torch")
+    for f in BM.FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [257, 192, 336])
+def test_finish_kernel_matches_plain_on_card(cuda_device, W):
+    g, rb, lmax, band = region_batch(W, cuda_device)
+    res = BM.beam_search(g, rb, beam=16, lmax=lmax, band=band, impl="torch")
+    # masks past tgt_len must not matter (the engine writes zeros there)
+    rng = np.random.default_rng(W)
+    masks = rb.tgt_masks.cpu().numpy()
+    for r, n in enumerate(rb.tgt_len.cpu().numpy()):
+        masks[r, n:] = 1 << rng.integers(0, 4, masks.shape[1] - n)
+    rb.tgt_masks = torch.tensor(masks, device=cuda_device)
+    before = finish_bundle_kernel.launches
+    got = _finish(finish_bundle_kernel, rb, res, band)
+    torch.cuda.synchronize()
+    assert finish_bundle_kernel.launches == before + 1
+    want = _finish(FN.finish_bundle, rb, res, band)
+    assert torch.equal(got.scalars, want.scalars)
+    assert torch.equal(got.seq_packed, want.seq_packed)
+
+
+@pytest.mark.cuda
+def test_fused_beam_wrapper_rejects_bad_inputs_on_card(cuda_device):
+    g, rb, lmax, band = region_batch(192, cuda_device, r_pad=8)
+    kw = dict(beam=16, lmax=lmax, band=band)
+    with pytest.raises(ValueError, match="beam must fit"):
+        BM.beam_search(g, rb, beam=256, lmax=lmax, band=band)
+    bad = BM.RegionBatch(**{**vars(rb), "tgt_len": rb.tgt_len.long()})
+    with pytest.raises(TypeError, match="int32"):
+        fused_beam_search(g, bad, **kw)
+    bad = BM.RegionBatch(**{**vars(rb), "max_plen": rb.max_plen.cpu()})
+    with pytest.raises(ValueError, match="is on cpu"):
+        fused_beam_search(g, bad, **kw)
+    strided = torch.zeros((8, 2 * rb.tgt_masks.shape[1]), dtype=torch.uint8,
+                          device=cuda_device)[:, ::2]
+    bad = BM.RegionBatch(**{**vars(rb), "tgt_masks": strided})
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_beam_search(g, bad, **kw)
+    bad = BM.RegionBatch(**{**vars(rb), "end_tip": rb.end_tip[:4]})
+    with pytest.raises(ValueError, match="shape"):
+        fused_beam_search(g, bad, **kw)
+
+
+@pytest.mark.cuda
+def test_finish_wrapper_rejects_bad_inputs_on_card(cuda_device):
+    g, rb, lmax, band = region_batch(192, cuda_device, r_pad=8)
+    res = BM.beam_search(g, rb, beam=16, lmax=lmax, band=band, impl="auto")
+    bad = BM.BeamResult(**{**vars(res), "best_len": res.best_len.long()})
+    with pytest.raises(TypeError, match="int32"):
+        _finish(finish_bundle_kernel, rb, bad, band)
+    bad = BM.BeamResult(**{**vars(res), "best_len": res.best_len[:4]})
+    with pytest.raises(ValueError, match="shape"):
+        _finish(finish_bundle_kernel, rb, bad, band)
+    bad = BM.BeamResult(**{**vars(res), "completed": res.completed.cpu()})
+    with pytest.raises(ValueError, match="is on cpu"):
+        _finish(finish_bundle_kernel, rb, bad, band)
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records each launch's tables and
+    returns the given error codes in turn."""
+
+    def __init__(self, name, errors):
+        self.calls, self._errors = [], list(errors)
+        setattr(self, name, self._launch)
+
+    def _launch(self, ptrs, n_ptrs, ints, n_ints, *rest):
+        self.calls.append(([ptrs[i] for i in range(n_ptrs)],
+                           [ints[i] for i in range(n_ints)], rest))
+        return self._errors.pop(0)
+
+
+def test_beam_launches_pass_the_tables_in_order_and_raise_on_error():
+    """The wrapper's two launches get every array's pointer and every size
+    in the order of csrc/beam.cu's tables; a launch that fails raises and
+    is not counted."""
+    from ratatosk_tpu_torch.ops import beam_kernel as BK
+    g, rb, lmax, band = region_batch(192, "cpu", r_pad=8)
+    lib = _FakeLib("beam_search_launch", [0, 0])
+    counted = []
+    res = BK.enqueue(lib, g, rb, beam=4, W=192, lmax=lmax, min_cov=2,
+                     sprint=8, index=0, stream=None,
+                     counted=lambda: counted.append(1))
+    assert len(lib.calls) == 2 and len(counted) == 2
+    (p1, i1, r1), (p2, i2, r2) = lib.calls
+    assert p1 == p2 and i1 == i2 and [r1[0], r2[0]] == [1, 2]
+    assert len(p1) == len(BK.PTRS) and len(i1) == len(BK.INTS)
+    ints = dict(zip(BK.INTS, i1))
+    assert (ints["R"], ints["NT"], ints["B"], ints["W"], ints["lmax"],
+            ints["smax"], ints["H"]) == (8, 2048, 4, 192, lmax, 8, 512)
+    assert ints["state_words"] == BK.state_words(4, 192)
+    ptrs = dict(zip(BK.PTRS, p1))
+    assert ptrs["tgt_masks"] == rb.tgt_masks.data_ptr()
+    assert ptrs["best_seq"] == res.best_seq.data_ptr()
+    assert ptrs["useq"] == g.useq.data_ptr()
+    assert tuple(res.best_seq.shape) == (8, lmax)
+    lib = _FakeLib("beam_search_launch", [0, 700])
+    counted.clear()
+    with pytest.raises(RuntimeError, match="launch 2 failed"):
+        BK.enqueue(lib, g, rb, beam=4, W=192, lmax=lmax, min_cov=2,
+                   sprint=8, index=0, stream=None,
+                   counted=lambda: counted.append(1))
+    assert len(counted) == 1
+
+
+def test_finish_launch_passes_the_tables_in_order_and_raises_on_error():
+    from ratatosk_tpu_torch.ops import finish_kernel as FK
+    g, rb, lmax, band = region_batch(192, "cpu", r_pad=8)
+    res = BM.beam_search(g, rb, beam=4, lmax=lmax, band=band, impl="torch")
+    arrays = dict(tgt_masks=rb.tgt_masks, tgt_len=rb.tgt_len,
+                  tgt_qual=rb.tgt_qual, best_seq=res.best_seq,
+                  best_len=res.best_len, best_dist=res.best_dist,
+                  best_end=res.best_end, second_dist=res.second_dist,
+                  completed=res.completed)
+    lib = _FakeLib("finish_bundle_launch", [0])
+    counted = []
+    out = FK.enqueue(lib, arrays, qv_max=QV_MAX, min_k=21, w=band,
+                     min_score_open=MIN_SCORE_OPEN, index=0, stream=None,
+                     counted=lambda: counted.append(1))
+    (ptrs, ints, rest), = lib.calls
+    assert len(counted) == 1
+    assert dict(zip(FK.INTS, ints)) == dict(R=8, NT=2048, L=lmax, w=band,
+                                            qv_max=QV_MAX, min_k=21)
+    assert rest[0] == MIN_SCORE_OPEN
+    assert ptrs == [arrays[n].data_ptr() for n in FK.PTRS[:9]] + [
+        out.scalars.data_ptr(), out.seq_packed.data_ptr()]
+    assert tuple(out.seq_packed.shape) == (8, -(-lmax // 16))
+    with pytest.raises(RuntimeError, match="finish kernel launch failed"):
+        FK.enqueue(_FakeLib("finish_bundle_launch", [1]), arrays,
+                   qv_max=QV_MAX, min_k=21, w=band,
+                   min_score_open=MIN_SCORE_OPEN, index=0, stream=None,
+                   counted=lambda: counted.append(1))
+    assert len(counted) == 1

@@ -89,10 +89,13 @@ def test_no_silent_fallback_off_the_cpu():
 
 def test_library_builds_once_under_concurrent_first_use(monkeypatch):
     """Mesh slots reach their first launch from several threads at once:
-    the library is built and loaded once, and every thread gets it."""
+    the library is built and loaded once, every thread gets it, and every
+    entry point of the three kernels has its signature set."""
     import threading
     import time
     import types
+
+    from ratatosk_tpu_torch.ops import cuda_lib
 
     builds, loads = [], []
 
@@ -103,15 +106,17 @@ def test_library_builds_once_under_concurrent_first_use(monkeypatch):
 
     def fake_cdll(path):
         loads.append(path)
-        return types.SimpleNamespace(
-            sprint_rows_launch=types.SimpleNamespace(),
-            sprint_rows_max_width=types.SimpleNamespace())
+        return types.SimpleNamespace(**{
+            name: types.SimpleNamespace() for name in (
+                "sprint_rows_launch", "sprint_rows_max_width",
+                "beam_search_launch", "beam_search_max_width",
+                "finish_bundle_launch", "finish_bundle_max_width")})
 
-    monkeypatch.setattr(SP, "_lib", None)
-    monkeypatch.setattr(SP, "build_library", slow_build)
-    monkeypatch.setattr(SP.ctypes, "CDLL", fake_cdll)
+    monkeypatch.setattr(cuda_lib, "_lib", None)
+    monkeypatch.setattr(cuda_lib, "build_library", slow_build)
+    monkeypatch.setattr(cuda_lib.ctypes, "CDLL", fake_cdll)
     got = []
-    threads = [threading.Thread(target=lambda: got.append(SP._library()))
+    threads = [threading.Thread(target=lambda: got.append(cuda_lib.library()))
                for _ in range(4)]
     for t in threads:
         t.start()
@@ -119,6 +124,58 @@ def test_library_builds_once_under_concurrent_first_use(monkeypatch):
         t.join()
     assert len(builds) == 1 and loads == ["libfake.so"]
     assert len(got) == 4 and all(lib is got[0] for lib in got)
+    lib = got[0]
+    for name, (res, args) in cuda_lib.SIGNATURES.items():
+        fn = getattr(lib, name)
+        assert fn.restype is res and fn.argtypes == args, name
+    # pointers and the stream are void pointers, never 32-bit ints
+    for name in ("beam_search_launch", "finish_bundle_launch"):
+        args = cuda_lib.SIGNATURES[name][1]
+        assert args[0] is cuda_lib.ctypes.c_void_p
+        assert args[2] is cuda_lib.ctypes.c_void_p
+        assert args[-1] is cuda_lib.ctypes.c_void_p
+
+
+def test_nvcc_flags_keep_float_math_exact():
+    """The beam kernel's float32 scores must round as PyTorch's do: no FMA
+    contraction, no fast-math division."""
+    from ratatosk_tpu_torch.ops import cuda_lib
+    assert "-fmad=false" in cuda_lib.NVCC_FLAGS
+    assert not any("fast_math" in f or "fast-math" in f
+                   for f in cuda_lib.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
+
+
+def test_every_kernel_source_is_built():
+    """build_library compiles every csrc/*.cu: the three kernels' sources
+    are there, and each defines the entry points registered for it."""
+    from ratatosk_tpu_torch.ops import cuda_lib
+    srcs = {p.name: p.read_text() for p in cuda_lib.SRC_DIR.glob("*.cu")}
+    assert {"sprint.cu", "beam.cu", "finish.cu"} <= set(srcs)
+    text = "".join(srcs.values())
+    for name in cuda_lib.SIGNATURES:
+        assert f'extern "C" int {name}(' in text, name
+
+
+@pytest.mark.parametrize("fault, exc, match", [
+    ("device", ValueError, "x is on meta, expected cpu"),
+    ("dtype", TypeError, "x must be torch.int32"),
+    ("shape", ValueError, r"x has shape \(4, 6\), expected \(4, 3\)"),
+    ("stride", ValueError, "x must be contiguous"),
+])
+def test_check_tensor_names_the_fault(fault, exc, match):
+    """The three wrappers' one input check: a tensor that is fine passes,
+    each fault raises with the wrapper's and the argument's names."""
+    from ratatosk_tpu_torch.ops import cuda_lib
+    cpu = torch.device("cpu")
+    ok = torch.zeros((4, 3), dtype=torch.int32)
+    cuda_lib.check_tensor("fn", "x", ok, torch.int32, (4, 3), cpu)
+    cuda_lib.check_tensor("fn", "x", ok, torch.int32, None, cpu)
+    bad = {"device": ok.to("meta"), "dtype": ok.long(),
+           "shape": torch.zeros((4, 6), dtype=torch.int32),
+           "stride": torch.zeros((4, 6), dtype=torch.int32)[:, ::2]}[fault]
+    with pytest.raises(exc, match=f"fn: {match}"):
+        cuda_lib.check_tensor("fn", "x", bad, torch.int32, (4, 3), cpu)
 
 
 @pytest.fixture
