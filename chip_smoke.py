@@ -33,7 +33,10 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      bit-identical, the kernels timed with CUDA events, the plain versions
      once, each with its bound for the work this launch's planned regions
      need (beam_work, finish_work: each region's own steps, candidates and
-     columns, counted from a plain run);
+     columns, at most one step past its own end, counted from a plain run);
+     the beam kernel's two launches also timed apart, its ms per step (the
+     call's time over the launch's step count T) and f_max (the longest
+     region's own steps);
   4b. [warm] both passes of the slice once more on the card, untraced,
      through fresh Correctors on the slice's graphs: byte-identical to the
      slice, the warm pass seconds and corrected bases/s of one card (the
@@ -353,10 +356,12 @@ def beam_work(torch, g, rb, *, beam: int, lmax: int, band: int,
     each valid candidate and a top-B selection of its 4B candidates (C log2
     C compares), and the two color dot products and the popcount of each
     winner that took a branch; from the graph, each active entry's successor
-    record and bases and each branching winner's color signature. In its
-    steps f_r..T-1 it only re-ranks its kept entries (B log2 B compares).
-    Then one walk of T steps back through the history. Returns the counts,
-    T, and bytes and operations for the bound."""
+    record and bases and each branching winner's color signature. Past f_r
+    it needs at most one step, a re-rank of its kept entries (B log2 B
+    compares), and only where T > f_r: the reference's later steps change
+    nothing the result reads (correct.beam.beam_search_by_region). Then one
+    walk of min(T, f_r+1) steps back through the history. Returns the
+    counts, T, and bytes and operations for the bound."""
     import math
     from ratatosk_tpu_torch.correct import beam as BM
     from ratatosk_tpu_torch.ops import sprint as SP
@@ -403,7 +408,8 @@ def beam_work(torch, g, rb, *, beam: int, lmax: int, band: int,
     n_branch, graph_bytes = (int(x) for x in n[4:].sum(dim=1).tolist())
     f_real = f[:n_real]
     active_steps = int(f_real.sum())
-    keep_steps = n_real * T - active_steps
+    keep_steps = int((f_real < T).sum())
+    walk_steps = int((f_real + 1).clamp(max=T).sum())
     C = 4 * B
     ops = (sprint_cells * (DP_OPS + SCAN_OPS)
            + cand_cells * (DP_OPS + STATS_OPS)
@@ -411,7 +417,7 @@ def beam_work(torch, g, rb, *, beam: int, lmax: int, band: int,
            + 8 * cand_rows + active_steps * C * math.ceil(math.log2(C))
            + 5 * H * n_branch
            + keep_steps * B * max(1, math.ceil(math.log2(B)))
-           + n_real * T * smax)
+           + walk_steps * smax)
     in_bytes = sum(getattr(rb, fl)[:n_real].numel()
                    * getattr(rb, fl).element_size()
                    for fl in ("tgt_masks", "tgt_len", "start_tip",
@@ -443,6 +449,37 @@ def finish_work(torch, rb, res, *, band: int, n_real: int) -> dict:
               + n_real * (21 + 11 * 4 + 4 * -(-L // 16)))
     return dict(W=Wf, rows=int((last + 1).sum()), cells=cells,
                 ops=10 * cells, bytes=nbytes)
+
+
+def beam_phase_ms(torch, g, rb, *, beam, lmax, min_cov, band, reps=5):
+    """(launch 1 ms, launch 2 ms) of the fused beam kernel, each the mean
+    of `reps` calls after a warm-up: CUDA events before the first launch
+    and after each (through the wrapper's enqueue, uncounted). A 1 ms
+    device sleep before the first event keeps the host's enqueue out of
+    launch 1's time."""
+    from ratatosk_tpu_torch.correct import beam as BM
+    from ratatosk_tpu_torch.ops import beam_kernel, cuda_lib
+    dev = rb.tgt_masks.device
+    stream = torch.cuda.current_stream(dev)
+    W = BM.band_width(rb.tgt_masks.shape[1], band)
+    tot = [0.0, 0.0]
+    for rep in range(reps + 1):
+        torch.cuda._sleep(2_000_000)
+        marks = [torch.cuda.Event(enable_timing=True)]
+        marks[0].record(stream)
+
+        def mark():
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record(stream)
+        beam_kernel.enqueue(cuda_lib.library(), g, rb, beam=beam, W=W,
+                            lmax=lmax, min_cov=min_cov, sprint=8,
+                            index=cuda_lib.device_index(dev),
+                            stream=stream.cuda_stream, counted=mark)
+        torch.cuda.synchronize()
+        if rep:
+            tot[0] += marks[0].elapsed_time(marks[1]) / reps
+            tot[1] += marks[1].elapsed_time(marks[2]) / reps
+    return tot[0], tot[1]
 
 
 def phase_fused_kernels(torch, sl: dict, dev):
@@ -482,18 +519,22 @@ def phase_fused_kernels(torch, sl: dict, dev):
                                      f"max abs err {err}")
         ms = _time_ms(torch, lambda: fused_beam_search(g, rb, **kw), reps=5,
                       warm=1)
+        p1, p2 = beam_phase_ms(torch, g, rb, **kw)
         wk = beam_work(torch, g, rb, n_real=b["n_real"], **kw)
         T = wk["T"]
         bound, by = _bound_ms(wk["bytes"], wk["ops"])
         rows["fused_beam_search"][nt] = dict(
             R=R, n_real=b["n_real"], B=B, W=W, T=T, f_max=wk["f_max"],
-            f_mean=wk["f_mean"], max_abs_err=err, ms=ms, plain_ms=plain,
+            f_mean=wk["f_mean"], max_abs_err=err, ms=ms, phase1_ms=p1,
+            phase2_ms=p2, ms_per_step=ms / max(T, 1), plain_ms=plain,
             bound_ms=bound, bound_by=by, source=b["tag"])
         log(f"[kernel] fused_beam_search NT={nt} ({b['tag']}): R={R} "
             f"({b['n_real']} real) B={B} W={W} lmax={lmax} T={T} (real "
-            f"regions' own steps: mean {wk['f_mean']:.1f}, max "
+            f"regions' own steps: mean {wk['f_mean']:.1f}, f_max "
             f"{wk['f_max']}): bit-identical to the plain version; kernel "
-            f"{ms:.4f} ms (2 launches), plain {plain:.1f} ms; bound "
+            f"{ms:.4f} ms (2 launches; launch 1 {p1:.4f} ms, launch 2 "
+            f"{p2:.4f} ms; {1e3 * ms / max(T, 1):.2f} us per step), plain "
+            f"{plain:.1f} ms; bound "
             f"{bound:.4f} ms ({by}: {wk['ops']} int32 ops for "
             f"{wk['sprint_rows']} sprint rows, {wk['cand_rows']} candidate "
             f"rows, {wk['emit_rows']} rebuilt rows, {wk['branch_winners']} "

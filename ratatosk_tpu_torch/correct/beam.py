@@ -22,10 +22,11 @@ TPU:
   scatter writes; torch raises. Every gather that relies on clamping clamps
   explicitly, and every reconstruction write masks its out-of-range rows;
 - on a CUDA tensor with impl="auto" the whole search runs in the fused
-  beam kernel (ops/beam_kernel.py, csrc/beam.cu): one block per region
-  loops over the branch steps and reconstructs the winner, in two launches
-  and with no host sync per step. beam_search_by_region is the plain
-  version of that control flow. impl="steps" keeps the per-step torch path
+  beam kernel (ops/beam_kernel.py, csrc/beam.cu): one warp per region
+  loops over the branch steps, doing work only for its live, unfrozen
+  entries, and reconstructs the winner, in two launches and with no host
+  sync per step. beam_search_by_region is the plain version of that
+  control flow. impl="steps" keeps the per-step torch path
   below, its sprint substeps in the sprint kernel (ops/sprint.py).
 
 The float scores stay separate torch ops, in the reference's order (no
@@ -673,10 +674,18 @@ def beam_search_by_region(g: DeviceGraph, rb: RegionBatch, *, beam: int,
 
     Phase 1 runs each region alone until none of its entries is live and
     unfrozen, or lmax: f_r steps. T = max_r f_r is the launch's step count.
-    Phase 2 continues each region from step f_r to T (a frozen region's
-    entries can still be re-ranked and its history grows), then every
-    region picks and reconstructs with that T. Equal to beam_search, field
-    for field, because regions share nothing but T."""
+    Phase 2 runs each region on for min(T, f_r+1) - f_r steps (one at
+    most), then picks and reconstructs as if after min(T, f_r+1) steps.
+    Equal to beam_search, field for field: regions share nothing but T, and
+    the reference's steps past f_r+1 change nothing the result reads. From
+    step f_r on no entry is active, so none emits and the scoreboard and
+    pcount stay; a frozen entry's keep candidate scores the same every
+    step, and valid candidates (score >= -0.5) outrank invalid ones (NEG).
+    So after step f_r the live entries hold the top slots in score order and
+    every later re-rank is the identity: each records hist = slot << 3 (its
+    own slot, no emission, no sprint bases), and the walk back from T-1
+    stands still down to step f_r. Step f_r itself stays: it can permute
+    tied entries, and the final pick's tie-break reads slot order."""
     _check_widths(beam, sprint)
     R, NT = rb.tgt_masks.shape
     W = band_width(NT, band)
@@ -691,9 +700,10 @@ def beam_search_by_region(g: DeviceGraph, rb: RegionBatch, *, beam: int,
     T = max((p[3] for p in parts), default=0)
     outs = []
     for rb_r, padded_tgt, st, f_r in parts:
-        st, _ = _run_steps(g, rb_r, padded_tgt, st, f_r, T,
+        t_r = min(T, f_r + 1)
+        st, _ = _run_steps(g, rb_r, padded_tgt, st, f_r, t_r,
                            until_frozen=False, **kw)
-        outs.append(_pick_and_reconstruct(rb_r, st, T, lmax=lmax,
+        outs.append(_pick_and_reconstruct(rb_r, st, t_r, lmax=lmax,
                                           smax=sprint))
     dev = rb.tgt_masks.device
     if not outs:

@@ -9,19 +9,24 @@ raises. Nothing falls back from the card.
 The kernel replaces the Pallas TPU kernel of the sprint substeps
 (ratatosk_tpu/ops/sprint_pallas.py) on this route, together with the plain
 JAX around it: the branch step, the all-frozen loop and the winner
-reconstruction (ratatosk_tpu/correct/beam.py:beam_search). One block per
-region loops over the branch steps. The reference steps every region of a
-launch until none of them has a live, unfrozen entry, so a region's result
-depends on the launch-wide step count T (correct.beam.beam_search_by_region
-is the plain version of this decomposition). Two launches on one stream
-realise it with no host sync: launch 1 runs each region to its own
-all-frozen step f_r, saves its state to scratch and raises T to f_r with an
-atomic max; launch 2 reads T, runs the steps f_r..T-1, picks and
-reconstructs. The wrapper allocates all scratch with torch.empty: the saved
-state, the double-buffered band rows [R, 2, B, W] and the history [R, lmax,
-B] (264 MB at bucket 5376 and B=16; 2.1 GB at B=128).
+reconstruction (ratatosk_tpu/correct/beam.py:beam_search). A warp owns a
+region and loops over its branch steps, doing work only for its live,
+unfrozen entries. The reference steps every region of a launch until none
+of them has a live, unfrozen entry (the launch-wide step count T), but a
+region's steps past its own all-frozen step f_r plus one change nothing its
+result reads (correct.beam.beam_search_by_region is the plain version of
+this decomposition, and says why). Two launches on one stream realise it
+with no host sync: launch 1 runs each region to f_r, saves its entries and
+scalars to scratch and raises T to f_r with an atomic max; launch 2 runs
+the one step f_r where T > f_r, then picks and reconstructs from step
+min(T, f_r+1)-1. The wrapper allocates all scratch with torch.empty: the
+saved state [R, 11B+32], the double-buffered band rows [R, 2, B, W] (read
+and written only when a region holds more than one live, unfrozen entry:
+the one it usually holds keeps its row in registers; 16.8 MB at R=512,
+B=16, W=257) and the history [R, lmax, B] (written for the steps a region
+runs: its f_r, plus one; 264 MB allocated at bucket 5376 and B=16, 2.1 GB
+at B=128).
 """
-
 from __future__ import annotations
 
 import torch
@@ -46,10 +51,10 @@ _RB_TYPES = dict(tgt_masks=torch.uint8, tgt_len=torch.int32,
                  max_plen=torch.int32, end_cyclic=torch.bool)
 
 
-def state_words(B: int, W: int) -> int:
+def state_words(B: int) -> int:
     """int32 words of one region's saved state between the two launches:
-    11 per beam entry, 32 region scalars, the W-wide target window."""
-    return 11 * B + 32 + W
+    11 per beam entry, 32 region scalars."""
+    return 11 * B + 32
 
 
 @cuda_lib.counted
@@ -115,7 +120,7 @@ def enqueue(lib, g, rb, *, beam, W, lmax, min_cov, sprint, index, stream,
                completed=empty(R, torch.bool), n_done=empty(R))
     if R == 0:
         return BM.BeamResult(**out)
-    sw = state_words(B, W)
+    sw = state_words(B)
     arrays = dict(
         useq=g.useq, utbl=g.utbl, color_sig=g.color_sig,
         **{name: getattr(rb, name) for name in _RB_TYPES},

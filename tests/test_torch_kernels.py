@@ -105,6 +105,46 @@ def test_fused_beam_kernel_matches_plain_on_card(cuda_device, W, B):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
+def edge_batch(kind: str, W: int, device):
+    """(graph, RegionBatch, lmax, band) of a batch that takes the kernel's
+    rarer paths: "padding" spreads padding rows among the real ones over
+    R=300 rows (several regions per block); "one_long" gives every region
+    but the longest a path budget of 2, so it freezes at once while one
+    runs on (T >> f_r); "none_complete" opens every region (end_tip = -1),
+    so no path arrives and each walk starts at step min(T, f_r+1)-1;
+    "ties" makes every target base an N (mask 15) and opens every other
+    region, so sibling branches tie at the rank (the index tie-break orders
+    them) and the final pick falls back on partial paths."""
+    g, rb, lmax, band = region_batch(W, "cpu")
+    f = {n: getattr(rb, n).clone() for n in BM.RegionBatch._DTYPES}
+    if kind == "padding":
+        idx = np.random.default_rng(W).permutation(300) % f["tgt_len"].shape[0]
+        f = {n: t[torch.as_tensor(idx)] for n, t in f.items()}
+    elif kind == "one_long":
+        keep = int(torch.argmax(f["tgt_len"]))
+        f["max_plen"] = torch.where(torch.arange(len(f["max_plen"])) == keep,
+                                    f["max_plen"], 2).to(torch.int32)
+    elif kind == "none_complete":
+        f["end_tip"] = torch.full_like(f["end_tip"], -1)
+    elif kind == "ties":
+        f["tgt_masks"][::2] = 15
+        f["end_tip"][::2] = -1
+    rb = BM.RegionBatch(**{n: t.contiguous().to(device) for n, t in f.items()})
+    return g.to(device), rb, lmax, band
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["padding", "one_long", "none_complete",
+                                  "ties"])
+def test_fused_beam_kernel_edge_batches_on_card(cuda_device, kind, W=192):
+    g, rb, lmax, band = edge_batch(kind, W, cuda_device)
+    got = BM.beam_search(g, rb, beam=16, lmax=lmax, band=band, impl="auto")
+    torch.cuda.synchronize()
+    want = BM.beam_search(g, rb, beam=16, lmax=lmax, band=band, impl="torch")
+    for f in BM.FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("W", [257, 192, 336])
 def test_finish_kernel_matches_plain_on_card(cuda_device, W):
@@ -194,7 +234,7 @@ def test_beam_launches_pass_the_tables_in_order_and_raise_on_error():
     ints = dict(zip(BK.INTS, i1))
     assert (ints["R"], ints["NT"], ints["B"], ints["W"], ints["lmax"],
             ints["smax"], ints["H"]) == (8, 2048, 4, 192, lmax, 8, 512)
-    assert ints["state_words"] == BK.state_words(4, 192)
+    assert ints["state_words"] == BK.state_words(4) == 11 * 4 + 32
     ptrs = dict(zip(BK.PTRS, p1))
     assert ptrs["tgt_masks"] == rb.tgt_masks.data_ptr()
     assert ptrs["best_seq"] == res.best_seq.data_ptr()
