@@ -30,13 +30,20 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      257 / 192 / 336, finish W 389 / 192 / 336), planned from the slice's
      own reads and padded as the engine pads them (a toy batch from
      ratatosk_tpu_torch.testing for a bucket the slice lacks):
-     bit-identical, the kernels timed with CUDA events, the plain versions
-     once, each with its bound for the work this launch's planned regions
+     bit-identical, the kernels' calls timed with CUDA events behind a
+     device sleep (the host's enqueue left out), the plain versions once,
+     each with its bound for the work this launch's planned regions
      need (beam_work, finish_work: each region's own steps, candidates and
      columns, at most one step past its own end, counted from a plain run);
      the beam kernel's two launches also timed apart, its ms per step (the
      call's time over the launch's step count T) and f_max (the longest
-     region's own steps);
+     region's own steps); the finish kernel's rows of the longest region
+     (max(tgt_len, best_end) + 1) and us per row;
+  3c. [wide] bands past 512 columns on the same planned regions: the 2048
+     bucket's launch at band_width=600 (both kernels at W=600) and the 256
+     bucket's regions packed with weak_region_len_factor=0.6 (the finish
+     kernel's path row of 569 columns), each kernel bit-identical to its
+     plain version;
   4b. [warm] both passes of the slice once more on the card, untraced,
      through fresh Correctors on the slice's graphs: byte-identical to the
      slice, the warm pass seconds and corrected bases/s of one card (the
@@ -60,36 +67,40 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      --devices 1 -v` with the defaults (k 31/63, SNP detection and pass-1
      edge rescue on), through cli.main(..., device="cuda"). The kernel must
      launch, every read come out in order, and the sampled error fall below
-     a fifth of the raw error;
-  8. [index] `index -1` on the first half of the short reads (20x; the
-     depth cut that keeps the script well inside its time limit), the
-     index's load and save timed on their own, then `correct -g
-     <prefix>.index.k31.npz -1` on all the long reads: the files must exist,
-     the kernel launch and the sampled error fall below raw/5. How many
-     reads differ from the [cli] run's pass 1 is printed, not checked (the
-     index holds half the short reads, and a saved index drops the colors'
-     full CSR, which SNP detection reads).
+     a fifth of the raw error. [cli quarter]: the same command on a
+     quarter of the slice's genome and long reads (1 Mbp and 64 reads by
+     default, simulated alike), the run that [index] and [dist] are held to
+     (their host steps, index builds above all, scale with the genome);
+  8. [index] on that quarter: `index -1` on the first half of its short
+     reads (20x), the index's load and save timed on their own, then
+     `correct -g <prefix>.index.k31.npz -1` on all its long reads: the files
+     must exist, the kernel launch and the sampled error fall below raw/5.
+     How many reads differ from the [cli quarter] run's pass 1 is printed,
+     not checked (the index holds half the short reads, and a saved index
+     drops the colors' full CSR, which SNP detection reads).
   9. [mesh] both passes of the slice on all its long reads with
      Corrector(..., mesh=...) on the slice's graphs (2 threads): slots are
      cuda:0..n-1 with 2 or more cards, else [cuda:0, cuda:0] (two slots on
      one card). Both FASTQ files must equal the slice's byte for byte, and
-     every slot must launch both kernels;
+     every slot must launch both kernels. The slots of a launch agree on
+     its step count T (parallel.mesh.StepCount): the T of each launch is
+     printed, and every slot's launch 2 must have read its launch's T;
  10. [sharded] ShardedKmerIndex over the same slots on the slice's k=31 and
      k=63 indexes: one read batch's canonical k-mers, absent keys with bit
      63 set and the all-ones key must get the host index's answers
      (KeyArray.find), timed per batch; then both passes with
      shard_index_min_keys=0 (anchor lookups through the sharded index),
-     byte-identical to the slice;
- 11. [dist] the multi-host launcher in two processes on the [cli] phase's
+     byte-identical to the slice, each launch's T checked as in [mesh];
+ 11. [dist] the multi-host launcher in two processes on the [cli quarter]
      inputs, both on cuda:0, joined by gloo on a free localhost port:
      `python -m ratatosk_tpu_torch.distributed_correct --coordinator ...
      --num-processes 2 --process-id i -- <the [cli] flags>`. The final
-     FASTQ must equal the [cli] run's byte for byte, both index .npz files
-     exist, and each process must launch both kernels.
+     FASTQ must equal the [cli quarter] run's byte for byte, both index .npz
+     files exist, and each process must launch both kernels.
 Launch counts are reset just before each path (the slice, [warm], each
-[plain] route, the 16-read planner run, the mesh and sharded runs, the [cli] run,
-the -g run; each [dist] process counts its own) and read just after; the
-kernels' record sums them by path.
+[plain] route, the 16-read planner run, the mesh and sharded runs, the two
+CLI runs, the -g run; each [dist] process counts its own) and read just
+after; the kernels' record sums them by path.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -241,6 +252,24 @@ def _time_ms(torch, fn, reps=20, warm=3):
     return a.elapsed_time(b) / reps
 
 
+def _call_ms(torch, fn, reps=5):
+    """Device ms of one call of fn (its kernel launches), the mean of
+    `reps` after a warm-up call: CUDA events around each call, behind a
+    device sleep that keeps the host's enqueue out of the time."""
+    fn()
+    tot = 0.0
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        tot += a.elapsed_time(b) / reps
+    return tot
+
+
 def phase_kernels(torch, dev):
     """Kernel vs plain version at each band width of the main path."""
     import numpy as np
@@ -293,7 +322,8 @@ def bucket_batches(sl: dict, dev):
     from ratatosk_tpu_torch import testing
     from ratatosk_tpu_torch.config import CorrectOpt
     from ratatosk_tpu_torch.correct import beam as BM
-    from ratatosk_tpu_torch.correct.engine import BUCKETS, region_arrays
+    from ratatosk_tpu_torch.correct.engine import (BUCKETS, bucket_band,
+                                                   region_arrays)
     from ratatosk_tpu_torch.io import fastx
     pools = []
     for tag, corr, o, path in (("pass 1", sl["corr1"], sl["o1"],
@@ -328,10 +358,11 @@ def bucket_batches(sl: dict, dev):
         rp = _engine_pad(len(specs), o.batch_regions)
         arrays, lmax = region_arrays(specs, nt, corr.colors.cap, r_pad=rp,
                                      len_factor=o.weak_region_len_factor)
-        band = 0 if nt <= 256 else max(o.band_width, nt // 16)
+        band = bucket_band(nt, o)
         out[nt] = dict(g=corr.g, rb=BM.RegionBatch.from_numpy(arrays, dev),
                        lmax=lmax, band=band, W=BM.band_width(nt, band),
                        n_real=len(specs), tag=tag, k=corr.cdbg.k,
+                       specs=specs, cap=corr.colors.cap,
                        qv_max=corr.qv_max, beam=o.beam_width,
                        min_cov=o.min_cov_vertices,
                        mso=o.min_score_open_region)
@@ -431,24 +462,37 @@ def beam_work(torch, g, rb, *, beam: int, lmax: int, band: int,
                 emit_rows=emit_rows, branch_winners=n_branch)
 
 
+# int32 operations per 32-column word of a bit-parallel DP row (Myers /
+# Hyyro): the update (Xv, Xh with its add, Ph, Mh, their shifts, Pv, Mv),
+# the row's match word (a shift of the mask's precomputed word), and the
+# word's share of the row minimum (four byte lookups, each with an add and
+# a min)
+MYERS_OPS, EQ_OPS, ROWMIN_OPS = 17, 1, 12
+
+
 def finish_work(torch, rb, res, *, band: int, n_real: int) -> dict:
     """The work the finish bundle needs: for each planned row, the DP rows
     0..max(tgt_len, best_end) at min(W, best_len + 1) columns each (the
-    decisions read no column past best_len), ~10 int32 operations per cell
-    (recurrence, scan, the running minimum and its tie column); bytes: the
-    target masks and qualities those rows read, the path, the scalars in
-    and out, the packed path out."""
+    decisions read no column past best_len), bit-parallel: each row's
+    ceil(columns / 32) words at MYERS_OPS + EQ_OPS + ROWMIN_OPS int32
+    operations each (about one a cell); bytes: the target masks and
+    qualities those rows read, the path, the scalars in and out, the packed
+    path out."""
     L = res.best_seq.shape[1]
     NT = rb.tgt_masks.shape[1]
     Wf = L + 1 if band <= 0 or band >= L + 1 else band
     n = rb.tgt_len[:n_real].long()
     last = torch.maximum(n, res.best_end[:n_real].long().clamp(0, NT))
     blen = res.best_len[:n_real].long()
-    cells = int(((last + 1) * (blen + 1).clamp_max(Wf)).sum())
+    cols = (blen + 1).clamp_max(Wf)
+    cells = int(((last + 1) * cols).sum())
+    words = int(((last + 1) * ((cols + 31) // 32)).sum())
     nbytes = (int(last.sum()) + 4 * int(n.sum()) + int(blen.sum())
               + n_real * (21 + 11 * 4 + 4 * -(-L // 16)))
-    return dict(W=Wf, rows=int((last + 1).sum()), cells=cells,
-                ops=10 * cells, bytes=nbytes)
+    return dict(W=Wf, rows=int((last + 1).sum()),
+                max_rows=int(last.max()) + 1 if n_real else 1, cells=cells,
+                words=words, ops=(MYERS_OPS + EQ_OPS + ROWMIN_OPS) * words,
+                bytes=nbytes)
 
 
 def beam_phase_ms(torch, g, rb, *, beam, lmax, min_cov, band, reps=5):
@@ -517,8 +561,7 @@ def phase_fused_kernels(torch, sl: dict, dev):
                 raise AssertionError(f"fused beam kernel differs from the "
                                      f"plain version at NT={nt}, field {f}: "
                                      f"max abs err {err}")
-        ms = _time_ms(torch, lambda: fused_beam_search(g, rb, **kw), reps=5,
-                      warm=1)
+        ms = _call_ms(torch, lambda: fused_beam_search(g, rb, **kw))
         p1, p2 = beam_phase_ms(torch, g, rb, **kw)
         wk = beam_work(torch, g, rb, n_real=b["n_real"], **kw)
         T = wk["T"]
@@ -558,20 +601,78 @@ def phase_fused_kernels(torch, sl: dict, dev):
                 and torch.equal(fo.seq_packed, fw.seq_packed)):
             raise AssertionError(f"finish kernel differs from finish_bundle "
                                  f"at NT={nt}: max abs err {ferr}")
-        fms = _time_ms(torch, lambda: finish_bundle_kernel(*fargs, **fkw),
-                       reps=10, warm=2)
+        fms = _call_ms(torch, lambda: finish_bundle_kernel(*fargs, **fkw),
+                       reps=10)
         fw = finish_work(torch, rb, want, band=band, n_real=b["n_real"])
         fbound, fby = _bound_ms(fw["bytes"], fw["ops"])
+        us_row = 1e3 * fms / fw["max_rows"]
         rows["finish_bundle_kernel"][nt] = dict(
-            R=R, W=fw["W"], rows=fw["rows"], cells=fw["cells"],
-            max_abs_err=ferr, ms=fms, plain_ms=fplain, bound_ms=fbound,
-            bound_by=fby)
+            R=R, W=fw["W"], rows=fw["rows"], longest_rows=fw["max_rows"],
+            us_per_row=us_row, cells=fw["cells"], max_abs_err=ferr, ms=fms,
+            plain_ms=fplain, bound_ms=fbound, bound_by=fby)
         log(f"[kernel] finish_bundle_kernel NT={nt}: R={R} L={lmax} "
-            f"W={fw['W']}, {fw['rows']} DP rows of the real regions, "
-            f"{fw['cells']} cells up to best_len: bit-identical to "
-            f"finish_bundle; kernel {fms:.4f} ms, plain {fplain:.1f} ms, "
-            f"bound {fbound:.4f} ms ({fby})")
-    return rows
+            f"W={fw['W']}, {fw['rows']} DP rows of the real regions (the "
+            f"longest region {fw['max_rows']}), {fw['cells']} cells in "
+            f"{fw['words']} 32-column words up to best_len: bit-identical to "
+            f"finish_bundle; kernel {fms:.4f} ms ({us_row:.3f} us per row of "
+            f"the longest region), plain {fplain:.1f} ms, bound "
+            f"{fbound:.4f} ms ({fby}: {fw['ops']} int32 ops, {fw['bytes']} "
+            f"bytes)")
+    return rows, batches
+
+
+def phase_wide(torch, batches: dict, dev) -> dict:
+    """Bands past 512 columns on the slice's planned regions: the 2048
+    bucket's launch with band_width=600 (both kernels at W=600, the band
+    moving along the regions longer than 600), and the 256 bucket's
+    regions packed with weak_region_len_factor=0.6 (the finish kernel's
+    full path row of 569 columns). Each kernel against its plain version,
+    bit for bit; each kernel's call timed once after a warm-up call."""
+    from ratatosk_tpu_torch.correct import beam as BM
+    from ratatosk_tpu_torch.correct import finish as FN
+    from ratatosk_tpu_torch.correct.engine import region_arrays
+    from ratatosk_tpu_torch.ops.beam_kernel import fused_beam_search
+    from ratatosk_tpu_torch.ops.finish_kernel import finish_bundle_kernel
+    out = {}
+    b2, b1 = batches[2048], batches[256]
+    arrays, lmax6 = region_arrays(b1["specs"], 256, b1["cap"],
+                                  r_pad=b1["rb"].tgt_masks.shape[0],
+                                  len_factor=0.6)
+    for tag, b, rb, lmax, band in (
+            ("band_width=600, NT=2048", b2, b2["rb"], b2["lmax"], 600),
+            ("weak_region_len_factor=0.6, NT=256", b1,
+             BM.RegionBatch.from_numpy(arrays, dev), lmax6, 0)):
+        kw = dict(beam=b["beam"], lmax=lmax, min_cov=b["min_cov"], band=band)
+        want = BM.beam_search(b["g"], rb, impl="torch", **kw)
+        got = fused_beam_search(b["g"], rb, **kw)
+        torch.cuda.synchronize()
+        for f in BM.FIELDS:
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"[wide] {tag}: the beam kernel differs "
+                                     f"from the plain version in {f}")
+        fargs = (rb.tgt_masks, rb.tgt_len, rb.tgt_qual, b["qv_max"], b["k"],
+                 want)
+        fkw = dict(w=band, min_score_open=b["mso"])
+        fo = finish_bundle_kernel(*fargs, **fkw)
+        fwant = FN.finish_bundle(*fargs, **fkw)
+        if not (torch.equal(fo.scalars, fwant.scalars)
+                and torch.equal(fo.seq_packed, fwant.seq_packed)):
+            raise AssertionError(f"[wide] {tag}: the finish kernel differs "
+                                 "from finish_bundle")
+        ms = _call_ms(torch, lambda: fused_beam_search(b["g"], rb, **kw),
+                      reps=1)
+        fms = _call_ms(torch, lambda: finish_bundle_kernel(*fargs, **fkw),
+                       reps=1)
+        W = BM.band_width(rb.tgt_masks.shape[1], band)
+        Wf = lmax + 1 if band <= 0 or band >= lmax + 1 else band
+        moving = (f" ({int((rb.tgt_len > W).sum())} regions longer than "
+                  "the band)" if band else "")
+        out[tag] = dict(W=W, finish_W=Wf, ms=ms, finish_ms=fms)
+        log(f"[wide] {tag}: beam W={W}{moving}, finish W={Wf}, lmax={lmax}: "
+            f"both kernels bit-identical "
+            f"to their plain versions; beam kernel {ms:.4f} ms, finish "
+            f"kernel {fms:.4f} ms")
+    return out
 
 
 def _write_long_reads(rng, genome, n_reads, read_len, path):
@@ -993,10 +1094,79 @@ def phase_warm(sl: dict, workdir: str, dev, smi: str):
     return launches
 
 
+class LaunchSteps:
+    """While open, records each mesh launch's step count: every slot's own
+    count and the launch's T (parallel.mesh.StepCount.agree), and the T
+    that each slot's beam-kernel launch 2 reads from its t_launch
+    (ops.beam_kernel.enqueue_launch2): a copy of it on the slot's stream
+    just before launch 2, read on the host only in check(), so the passes
+    run with no more host syncs than without it. check() fails unless every
+    slot of every launch used its launch's T."""
+
+    def __enter__(self):
+        import threading
+        from ratatosk_tpu_torch.ops import beam_kernel as BK
+        from ratatosk_tpu_torch.parallel import mesh as M
+        self.agrees, self.reads = {}, {}
+        self._saved = (M.StepCount.agree, BK.enqueue_launch2)
+        agree, launch2 = self._saved
+
+        def spy_agree(steps, own):
+            T = agree(steps, own)
+            self.agrees.setdefault(threading.get_ident(), []).append(
+                (id(steps), own, T))
+            return T
+
+        def spy_launch2(q):
+            # on the current stream, the slot's: after the launch's T is
+            # written, before launch 2 reads it
+            self.reads.setdefault(threading.get_ident(), []).append(
+                q.t_launch.clone())
+            return launch2(q)
+        M.StepCount.agree, BK.enqueue_launch2 = spy_agree, spy_launch2
+        return self
+
+    def __exit__(self, *exc):
+        from ratatosk_tpu_torch.ops import beam_kernel as BK
+        from ratatosk_tpu_torch.parallel import mesh as M
+        M.StepCount.agree, BK.enqueue_launch2 = self._saved
+
+    def check(self, tag: str):
+        """(T of each launch, in order; launches in which some slot's own
+        count was below T)."""
+        launches = {}
+        for tid, agrees in self.agrees.items():
+            reads = self.reads.get(tid, [])
+            if len(reads) != len(agrees):
+                raise AssertionError(f"[{tag}] a slot ran {len(agrees)} step "
+                                     f"counts and {len(reads)} launch 2s")
+            for (key, own, T), got in zip(agrees, reads):
+                got = int(got.item())
+                if got != T:
+                    raise AssertionError(f"[{tag}] a slot's launch 2 read T="
+                                         f"{got}, its launch agreed on {T}")
+                launches.setdefault(key, []).append((own, T))
+        for slots in launches.values():
+            if any(T != max(o for o, _ in slots) for _, T in slots):
+                raise AssertionError(f"[{tag}] a launch's T is not the max of "
+                                     f"its slots' own counts: {slots}")
+        if not launches:
+            raise AssertionError(f"[{tag}] no mesh launch agreed on a T")
+        return ([s[0][1] for s in launches.values()],
+                sum(any(o < T for o, T in s) for s in launches.values()))
+
+
 def _mesh_passes(tag: str, sl: dict, workdir: str, mesh, **opt_kw):
-    """Both passes of the slice on `mesh`, against the slice. Returns
-    (launches, per-slot launches, pass seconds)."""
-    launches, secs = _two_passes(tag, sl, workdir, dict(mesh=mesh), **opt_kw)
+    """Both passes of the slice on `mesh`, against the slice; every slot of
+    every launch must run launch 2 with its launch's T. Returns (launches,
+    per-slot launches, pass seconds)."""
+    with LaunchSteps() as steps:
+        launches, secs = _two_passes(tag, sl, workdir, dict(mesh=mesh),
+                                     **opt_kw)
+    Ts, below = steps.check(tag)
+    log(f"[{tag}] launch-wide step count T of the {len(Ts)} launches: {Ts}; "
+        f"every slot's launch 2 read its launch's T; in {below} launches a "
+        f"slot's own count was below it")
     w = _wrappers()
     per_slot = {n: [w[n].launches_by_stream.get(mesh.stream(i).cuda_stream, 0)
                     for i in range(mesh.size)] for n in PATH_KERNELS}
@@ -1111,7 +1281,8 @@ def _free_port() -> int:
 
 
 def phase_dist(sl: dict, workdir: str, short_fa: str, cli_out: str):
-    """Two processes through the multi-host launcher on the [cli] inputs."""
+    """Two processes through the multi-host launcher on the inputs of the
+    CLI run that wrote `cli_out`, which its FASTQ must equal."""
     from ratatosk_tpu_torch.graph import io as GIO
     out = os.path.join(workdir, "dist")
     argv = ["-s", short_fa, "-l", sl["lr_path"], "-o", out, "-c", "2",
@@ -1148,7 +1319,8 @@ def phase_dist(sl: dict, workdir: str, short_fa: str, cli_out: str):
         _require_launches(f"dist process {pid}", c)
     if Path(out + ".fastq").read_bytes() != Path(cli_out + ".fastq") \
             .read_bytes():
-        raise AssertionError("[dist] final FASTQ differs from the [cli] run's")
+        raise AssertionError("[dist] final FASTQ differs from the "
+                             "single-process CLI run's")
     for k in (31, 63):
         if not os.path.getsize(GIO.index_path(out, k)):
             raise AssertionError(f"[dist] {GIO.index_path(out, k)} is empty")
@@ -1163,12 +1335,12 @@ def phase_dist(sl: dict, workdir: str, short_fa: str, cli_out: str):
                      f"{' / '.join(f'{x:.1f}' for x in snp)}s")
     log(f"[dist] 2 processes on cuda:0 (gloo, localhost:{port}): "
         f"{wall:.1f}s wall; {'; '.join(steps)}; final FASTQ byte-identical "
-        f"to the [cli] run's; index .npz k31/k63 written; kernel launches "
+        f"to the single-process CLI run's; index .npz k31/k63 written; kernel launches "
         f"{per_proc}")
     return {n: sum(c[n] for c in per_proc) for n in PATH_KERNELS}
 
 
-def _write_short_fasta(sreads, path: str, half_path: str) -> None:
+def _write_short_fasta(sreads, path: str, half_path: str = os.devnull) -> None:
     """Every short read to `path`, the first half also to `half_path`."""
     from ratatosk_tpu_torch import dna
     with open(path, "w") as f, open(half_path, "w") as h:
@@ -1184,13 +1356,15 @@ def _trace(path: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def phase_cli(sl: dict, workdir: str, short_fa: str, smi: str):
-    """The user's `correct` command at the slice's data shape."""
+def phase_cli(sl: dict, workdir: str, short_fa: str, smi: str,
+              name: str = "cli"):
+    """The user's `correct` command on the data of `sl`; `name` tags its
+    lines and names its files."""
     import torch
     from ratatosk_tpu_torch import cli
     truth, n_reads = sl["truth"], len(sl["truth"])
-    out = os.path.join(workdir, "cli")
-    trace = os.path.join(workdir, "cli.trace.jsonl")
+    out = os.path.join(workdir, name.replace(" ", "_"))
+    trace = out + ".trace.jsonl"
     _reset_launches()
     t = time.time()
     cli.main(["correct", "-s", short_fa, "-l", sl["lr_path"], "-o", out,
@@ -1199,7 +1373,7 @@ def phase_cli(sl: dict, workdir: str, short_fa: str, smi: str):
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = _launches()
-    _require_launches("cli", launches)
+    _require_launches(name, launches)
     evs = _trace(trace)
     snp = [e for e in evs if e["ev"] == "snp"]
     rescue = [e for e in evs if e["ev"] == "rescue"]
@@ -1209,20 +1383,20 @@ def phase_cli(sl: dict, workdir: str, short_fa: str, smi: str):
     raw = _raw_error(truth)
     dt = passes[1]["secs"] + passes[2]["secs"]
     steps = (sum(e["secs"] for e in snp + rescue) + dt)
-    log(f"[cli] correct -c 2 --devices 1 (k 31/63, SNPs and edge rescue on): "
-        f"{wall:.1f}s wall; edge rescue {rescue[0]['edges']} edges in "
+    log(f"[{name}] correct -c 2 --devices 1 (k 31/63, SNPs and edge rescue "
+        f"on): {wall:.1f}s wall; edge rescue {rescue[0]['edges']} edges in "
         f"{rescue[0]['secs']:.1f}s; SNP detection "
         + ", ".join(f"pass {i + 1} {e['sites']} sites in {e['secs']:.1f}s"
                     for i, e in enumerate(snp))
         + f"; pass 1 {passes[1]['secs']:.1f}s, pass 2 {passes[2]['secs']:.1f}s"
         f"; index builds and I/O {wall - steps:.1f}s; {launches} kernel "
         f"launches")
-    log(f"[cli] {sl['bases']} bases through 2 passes in {dt:.1f}s: "
+    log(f"[{name}] {sl['bases']} bases through 2 passes in {dt:.1f}s: "
         f"{sl['bases'] / dt:.1f} corrected bases/s on {smi}; error on "
         f"{len(_sample(n_reads))} sampled reads: raw {raw:.4f}, pass 1 "
         f"{mid:.4f}, pass 2 {cor:.4f}")
     if not cor < raw / 5:
-        raise AssertionError(f"CLI error {cor:.4f} is not below raw/5")
+        raise AssertionError(f"[{name}] error {cor:.4f} is not below raw/5")
     return dict(launches=launches, out=out)
 
 
@@ -1273,26 +1447,55 @@ def phase_index(sl: dict, workdir: str, half_fa: str, cli_out: str):
     log(f"[index] correct -g <npz> -1 in {t_g:.1f}s (pass 1 "
         f"{p1['secs']:.1f}s), {launches} kernel launches; error raw "
         f"{raw:.4f}, corrected {cor:.4f}; {n_diff} of {n_reads} reads "
-        "differ from the [cli] run's pass 1")
+        "differ from the single-process CLI run's pass 1")
     if not cor < raw / 5:
         raise AssertionError(f"-g run error {cor:.4f} is not below raw/5")
     return dict(launches=launches)
 
 
-def phase_rest(sl: dict, workdir: str, smi: str, launches: dict) -> None:
-    """[cli], [index] and [dist] on the slice's data; adds their launches."""
-    short_fa = os.path.join(workdir, "short.fa")
-    half_fa = os.path.join(workdir, "short.half.fa")
+def quarter_data(workdir: str, glen: int, n_reads: int) -> dict:
+    """A dataset of the slice's shape (repeats, 40x short reads, 4 kbp long
+    reads at 10% error) on a quarter of its genome and long reads."""
+    import numpy as np
+    from ratatosk_tpu_torch import testing
     t = time.time()
-    _write_short_fasta(sl.pop("sreads"), short_fa, half_fa)
+    rng = np.random.default_rng(SEED + 3)
+    genome = testing.random_genome(rng, glen // 4, repeat_frac=0.15,
+                                   repeat_len=250)
+    sreads = testing.short_reads(rng, genome, coverage=40.0)
+    lr_path = os.path.join(workdir, "quarter.long.fq")
+    truth, total = _write_long_reads(rng, genome, max(n_reads // 4, 16),
+                                     4000, lr_path)
+    log(f"[cli quarter] simulated genome {glen // 4} bp, {len(sreads)} "
+        f"short reads, {len(truth)} long reads ({total} bp) in "
+        f"{time.time() - t:.1f}s")
+    return dict(truth=truth, lr_path=lr_path, sreads=sreads, bases=total)
+
+
+def phase_rest(sl: dict, workdir: str, smi: str, launches: dict,
+               glen: int, n_reads: int) -> None:
+    """[cli] on the slice's data; [index] and [dist] on a quarter of its
+    genome and long reads, beside the same `correct` run on that quarter
+    ([cli quarter]), which [dist] is held to: their host steps, index
+    builds above all, scale with the genome, and with all three on the
+    slice's data the script took 981.4 s of its 1,200 (NVIDIA H100 80GB
+    HBM3). Adds their launches."""
+    short_fa = os.path.join(workdir, "short.fa")
+    t = time.time()
+    _write_short_fasta(sl.pop("sreads"), short_fa)
     log(f"[cli] wrote {os.path.getsize(short_fa)} bytes of short-read "
-        f"FASTA (and its first half) in {time.time() - t:.1f}s")
+        f"FASTA in {time.time() - t:.1f}s")
     sl.pop("corr1"), sl.pop("corr2")
-    cl = phase_cli(sl, workdir, short_fa, smi)
-    launches["cli"] = cl["launches"]
-    launches["index_g"] = phase_index(sl, workdir, half_fa,
-                                      cl["out"])["launches"]
-    launches["dist"] = phase_dist(sl, workdir, short_fa, cl["out"])
+    launches["cli"] = phase_cli(sl, workdir, short_fa, smi)["launches"]
+    q = quarter_data(workdir, glen, n_reads)
+    q_fa = os.path.join(workdir, "quarter.short.fa")
+    half_fa = os.path.join(workdir, "quarter.short.half.fa")
+    _write_short_fasta(q.pop("sreads"), q_fa, half_fa)
+    qc = phase_cli(q, workdir, q_fa, smi, name="cli quarter")
+    launches["cli_quarter"] = qc["launches"]
+    launches["index_g"] = phase_index(q, workdir, half_fa,
+                                      qc["out"])["launches"]
+    launches["dist"] = phase_dist(q, workdir, q_fa, qc["out"])
 
 
 def main(argv=None) -> int:
@@ -1326,7 +1529,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="ratatosk_smoke_") as workdir:
         sl = run_slice(dev, args.genome_bp, args.long_reads, workdir, smi)
         add("slice", sl["launches"])
-        frows = phase_fused_kernels(torch, sl, dev)
+        frows, batches = phase_fused_kernels(torch, sl, dev)
+        phase_wide(torch, batches, dev)
+        del batches
         add("warm", phase_warm(sl, workdir, dev, smi))
         if not args.mesh_only:
             head, host_fastq, steps = phase_plain_vs_kernel(dev, sl, workdir)
@@ -1338,7 +1543,8 @@ def main(argv=None) -> int:
         add("sharded", phase_sharded(sl, workdir, mesh))
         if not args.mesh_only:
             rest = {}
-            phase_rest(sl, workdir, smi, rest)
+            phase_rest(sl, workdir, smi, rest, args.genome_bp,
+                       args.long_reads)
             for path, counts in rest.items():
                 add(path, counts)
     torch.cuda.synchronize()

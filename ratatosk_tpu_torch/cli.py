@@ -10,8 +10,11 @@ that `--devices` names; several hosts run it through
 Two deliberate differences from the JAX package's CLI:
 - no `-d/--in-unitig-data`: the `.npz` index given with `-g` already holds
   the unitig data, and the JAX CLI reads the flag nowhere but a check;
-- `--batch-regions` defaults to CorrectOpt's 512, not 64. The corrected
-  output does not depend on it (padding rows of a launch are inert).
+- `--batch-regions` defaults to CorrectOpt's 512, not 64. Padding rows of
+  a launch are inert; the batch size reaches the output only through the
+  launch-wide step count (a launch's longest region runs one step fewer
+  than its others), which can reorder tied entries of a region without a
+  completed path. No such case is known (tests/test_torch_cli.py).
 """
 
 from __future__ import annotations

@@ -633,9 +633,47 @@ def _pick_and_reconstruct(rb: RegionBatch, st: BeamState, T: int, *,
     )
 
 
+@dataclasses.dataclass
+class Phase1:
+    """A batch after phase 1 of the search (beam_phase1)."""
+
+    st: BeamState
+    padded_tgt: torch.Tensor
+    f: int  # steps run: until no row holds a live, unfrozen entry, or lmax
+
+
+def beam_phase1(g: DeviceGraph, rb: RegionBatch, *, beam: int, lmax: int,
+                min_cov: int = 2, band: int = 0, sprint: int = 8,
+                sprint_fn=sprint_rows_ref) -> Phase1:
+    """Init, then steps until no entry of the batch is live and unfrozen,
+    or lmax: the batch's own step count f, the largest f_r of its rows."""
+    W = band_width(rb.tgt_masks.shape[1], band)
+    st, padded_tgt = _init_state(rb, beam, lmax, W)
+    st, f = _run_steps(g, rb, padded_tgt, st, 0, lmax, until_frozen=True,
+                       min_cov=min_cov, smax=sprint, sprint_fn=sprint_fn)
+    return Phase1(st, padded_tgt, f)
+
+
+def beam_phase2(g: DeviceGraph, rb: RegionBatch, p1: Phase1, T: int, *,
+                lmax: int, min_cov: int = 2, sprint: int = 8,
+                sprint_fn=sprint_rows_ref) -> BeamResult:
+    """The launch-wide step count T (>= p1.f: the largest f over every batch
+    of the launch) applied to a batch after phase 1: it runs on to
+    min(T, p1.f + 1) steps, then picks and reconstructs as after that many.
+    The same result as running on to T (beam_search_by_region says why)."""
+    if T < p1.f:
+        raise ValueError(f"launch-wide step count {T} below the batch's own "
+                         f"{p1.f}")
+    t = min(T, p1.f + 1)
+    st, _ = _run_steps(g, rb, p1.padded_tgt, p1.st, p1.f, t,
+                       until_frozen=False, min_cov=min_cov, smax=sprint,
+                       sprint_fn=sprint_fn)
+    return _pick_and_reconstruct(rb, st, t, lmax=lmax, smax=sprint)
+
+
 def beam_search(g: DeviceGraph, rb: RegionBatch, *, beam: int, lmax: int,
                 min_cov: int = 2, band: int = 0, sprint: int = 8,
-                impl: str = "auto") -> BeamResult:
+                impl: str = "auto", launch_t=None) -> BeamResult:
     """band=0 (or >= NT+1) means exact full-row DP; otherwise a W-wide band.
 
     sprint: max bases an outer step advances per region (1 branch step plus
@@ -646,20 +684,22 @@ def beam_search(g: DeviceGraph, rb: RegionBatch, *, beam: int, lmax: int,
     sprint kernel on a CUDA tensor); "torch" is plain throughout.
 
     Steps run until no entry of the launch is live and unfrozen, or lmax:
-    init, steps, then the pick and reconstruction."""
+    phase 1 until no entry of this batch is, then phase 2 with the launch's
+    step count T. When this batch is a launch's only part, T is its own
+    step count; a mesh slot, one part of a launch, passes launch_t, which
+    takes its own step count and returns the launch's (the max over the
+    slots: parallel.mesh.StepCount.agree)."""
     check_impl(impl)
     _check_widths(beam, sprint)
     if impl == "auto":
         from ratatosk_tpu_torch.ops.beam_kernel import fused_beam_search
         return fused_beam_search(g, rb, beam=beam, lmax=lmax, min_cov=min_cov,
-                                 band=band, sprint=sprint)
-    W = band_width(rb.tgt_masks.shape[1], band)
-    st, padded_tgt = _init_state(rb, beam, lmax, W)
-    st, T = _run_steps(g, rb, padded_tgt, st, 0, lmax, until_frozen=True,
-                       min_cov=min_cov, smax=sprint,
-                       sprint_fn=sprint_rows if impl == "steps"
-                       else sprint_rows_ref)
-    return _pick_and_reconstruct(rb, st, T, lmax=lmax, smax=sprint)
+                                 band=band, sprint=sprint, launch_t=launch_t)
+    kw = dict(min_cov=min_cov, sprint=sprint,
+              sprint_fn=sprint_rows if impl == "steps" else sprint_rows_ref)
+    p1 = beam_phase1(g, rb, beam=beam, lmax=lmax, band=band, **kw)
+    T = p1.f if launch_t is None else launch_t(p1.f)
+    return beam_phase2(g, rb, p1, T, lmax=lmax, **kw)
 
 
 def _rows(rb: RegionBatch, r: int) -> RegionBatch:
@@ -687,24 +727,15 @@ def beam_search_by_region(g: DeviceGraph, rb: RegionBatch, *, beam: int,
     stands still down to step f_r. Step f_r itself stays: it can permute
     tied entries, and the final pick's tie-break reads slot order."""
     _check_widths(beam, sprint)
-    R, NT = rb.tgt_masks.shape
-    W = band_width(NT, band)
-    kw = dict(min_cov=min_cov, smax=sprint, sprint_fn=sprint_rows_ref)
+    kw = dict(min_cov=min_cov, sprint=sprint)
     parts = []
-    for r in range(R):
+    for r in range(rb.tgt_masks.shape[0]):
         rb_r = _rows(rb, r)
-        st, padded_tgt = _init_state(rb_r, beam, lmax, W)
-        st, f_r = _run_steps(g, rb_r, padded_tgt, st, 0, lmax,
-                             until_frozen=True, **kw)
-        parts.append((rb_r, padded_tgt, st, f_r))
-    T = max((p[3] for p in parts), default=0)
-    outs = []
-    for rb_r, padded_tgt, st, f_r in parts:
-        t_r = min(T, f_r + 1)
-        st, _ = _run_steps(g, rb_r, padded_tgt, st, f_r, t_r,
-                           until_frozen=False, **kw)
-        outs.append(_pick_and_reconstruct(rb_r, st, t_r, lmax=lmax,
-                                          smax=sprint))
+        parts.append((rb_r, beam_phase1(g, rb_r, beam=beam, lmax=lmax,
+                                        band=band, **kw)))
+    T = max((p1.f for _, p1 in parts), default=0)
+    outs = [beam_phase2(g, rb_r, p1, T, lmax=lmax, **kw)
+            for rb_r, p1 in parts]
     dev = rb.tgt_masks.device
     if not outs:
         return BeamResult(

@@ -50,6 +50,7 @@ from ratatosk_tpu_torch.correct.seeds import (SolidRun, filter_runs_by_color,
 from ratatosk_tpu_torch.correct.choose import branching_mask, choose_region_colors
 from ratatosk_tpu_torch.graph.build import Cdbg
 from ratatosk_tpu_torch.graph.colors import GraphColors
+from ratatosk_tpu_torch.ops import beam_kernel, finish_kernel, sprint
 from ratatosk_tpu_torch.ops import cigar as CG
 from ratatosk_tpu_torch.ops import colorset as CS
 from ratatosk_tpu_torch.ops.finish_kernel import finish_bundle_kernel
@@ -69,17 +70,62 @@ _NEAR_EXACT_SKIP = 16
 
 
 def _beam_finish(g, rb, qv_max, min_k, *, beam, lmax, min_cov, band, w,
-                 min_score_open, impl="auto"):
+                 min_score_open, impl="auto", launch_t=None):
     """Beam search + chained finish bundle: one launch's device work, ending
     in the two arrays the host reads back. On a CUDA device with
     impl="auto" that is two beam-kernel launches and one finish-kernel
-    launch on the current stream, with no host sync in between; "steps"
-    and "torch" run the plain finish (beam.IMPLS)."""
+    launch on the current stream, with no host sync in between (a mesh
+    slot's part of a launch reads back its step count once, for launch_t:
+    beam.beam_search); "steps" and "torch" run the plain finish
+    (beam.IMPLS)."""
     res = BM.beam_search(g, rb, beam=beam, lmax=lmax, min_cov=min_cov,
-                         band=band, impl=impl)
+                         band=band, impl=impl, launch_t=launch_t)
     finish = finish_bundle_kernel if impl == "auto" else FN.finish_bundle
     return finish(rb.tgt_masks, rb.tgt_len, rb.tgt_qual, qv_max, min_k, res,
                   w=w, min_score_open=min_score_open)
+
+
+def bucket_band(nt: int, opt: CorrectOpt) -> int:
+    """The DP band of a launch in bucket nt (0: the exact full row). The
+    band must absorb the path-vs-read indel drift, which grows with region
+    length (~2-3% of NT at ONT error rates): it scales."""
+    return 0 if nt <= 256 else max(opt.band_width, nt // 16)
+
+
+def bucket_lmax(nt: int, len_factor: float) -> int:
+    """The longest path a launch in bucket nt holds (region_arrays)."""
+    return int(np.ceil((1.0 + 2.0 * len_factor) * nt)) + 4
+
+
+def check_kernel_widths(opt: CorrectOpt, impl: str) -> None:
+    """Raise ValueError, naming the option, when a launch of some bucket
+    would ask a kernel of route `impl` (beam.IMPLS) on a CUDA device for a
+    wider band than it takes: the beam kernel's band (band_width) and the
+    finish kernel's (band_width, or the whole path row at NT=256, set by
+    weak_region_len_factor) on "auto", the sprint kernel's on "steps"; or
+    for longer paths than the finish kernel's shared memory holds
+    (weak_region_len_factor above ~13). Each kernel's own refuses() is the
+    test."""
+    band_kernel = {"auto": beam_kernel, "steps": sprint}.get(impl)
+    if band_kernel is None:
+        return
+    for nt in BUCKETS:
+        band = bucket_band(nt, opt)
+        lmax = bucket_lmax(nt, opt.weak_region_len_factor)
+        why = band_kernel.refuses(BM.band_width(nt, band))
+        if why:
+            raise ValueError(
+                f"band_width={opt.band_width} gives {why} in the {nt} "
+                f"bucket, which the {impl!r} route's band kernel does not "
+                "take (impl='torch' takes any)")
+        why = impl == "auto" and finish_kernel.refuses(
+            nt, lmax, lmax + 1 if band <= 0 or band >= lmax + 1 else band)
+        if why:
+            raise ValueError(
+                f"weak_region_len_factor={opt.weak_region_len_factor} and "
+                f"band_width={opt.band_width} give {why} in the {nt} bucket, "
+                "which the finish kernel does not take (impl='torch' takes "
+                "any)")
 
 
 def region_arrays(specs: List["RegionSpec"], nt: int, color_cap: int, *,
@@ -128,7 +174,7 @@ def region_arrays(specs: List["RegionSpec"], nt: int, color_cap: int, *,
         # (the fixRepeats cycle-splicing role, GraphTraversal.cpp:1149-1334)
         f = len_factor * (2.0 if sp.on_cycle else 1.0)
         max_plen[i] = int(np.ceil((1.0 + f) * len(tgt))) + 4
-    lmax = int(np.ceil((1.0 + 2.0 * len_factor) * nt)) + 4
+    lmax = bucket_lmax(nt, len_factor)
     return dict(
         tgt_masks=tgt_masks, tgt_len=tgt_len,
         start_tip=start_tip, start_off=start_off,
@@ -243,6 +289,10 @@ class Corrector:
         self.device = (torch.device(device) if device is not None
                        else mesh.devices[0])
         self.impl = impl
+        devs = mesh.devices if mesh is not None else (self.device,)
+        if any(d.type == "cuda" for d in devs):
+            # the kernels' widths: refused here, before any read is planned
+            check_kernel_widths(self.opt, impl)
         self.g = DeviceGraph.from_host(cdbg, colors, self.device)
         # multi-device execution: with a mesh of several slots the graph is
         # replicated per device and every region batch splits over the
@@ -740,9 +790,7 @@ class Corrector:
         arrays, lmax = region_arrays(
             specs, nt, self.colors.cap, mirrored=mirrored, r_pad=Rp,
             len_factor=self.opt.weak_region_len_factor)
-        # band must absorb the path-vs-read indel drift, which grows with
-        # region length (~2-3% of NT at ONT error rates) — scale it
-        band = 0 if nt <= 256 else max(self.opt.band_width, nt // 16)
+        band = bucket_band(nt, self.opt)
         kw = dict(beam=beam or self.opt.beam_width, lmax=lmax,
                   min_cov=self.opt.min_cov_vertices, band=band, w=band,
                   min_score_open=self.opt.min_score_open_region,
@@ -755,12 +803,14 @@ class Corrector:
             fin = _beam_finish(self.g, rb, self.qv_max, self.cdbg.k, **kw)
             return (lambda: host(fin)), lmax
 
-        def slot(dev, rows):
-            # upload, launch and read-back on the slot's thread and stream
+        def slot(dev, rows, steps):
+            # upload, launch and read-back on the slot's thread and stream;
+            # the launch's slots agree on its step count T
             rb = BM.RegionBatch.from_numpy(
                 {f: a[rows] for f, a in arrays.items()}, dev)
             return host(_beam_finish(self.replicas[dev], rb, self.qv_max,
-                                     self.cdbg.k, **kw))
+                                     self.cdbg.k, launch_t=steps.agree,
+                                     **kw))
 
         futs = pool.submit_rows(Rp, slot, n_real=R)
         return (lambda: M.gather(futs)), lmax

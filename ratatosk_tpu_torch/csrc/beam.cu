@@ -80,7 +80,7 @@ constexpr float kNeg = -1e9f;
 constexpr float kCapC = 16.f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxB = 128;
-constexpr int kMaxW = 16 * 32;
+constexpr int kMaxW = 32 * 32;  // C <= 32: the stats keys hold a column in 10 bits
 constexpr int kRegionInts = 32;
 constexpr int kHistChunk = 32;
 constexpr int kMaxRegionsPerBlock = 4;
@@ -1109,5 +1109,7 @@ extern "C" int beam_search_launch(const void* const* ptrs, int n_ptrs,
   if (c <= 9) return launch<9>(a, phase, s);
   if (c <= 11) return launch<11>(a, phase, s);
   if (c <= 13) return launch<13>(a, phase, s);
-  return launch<16>(a, phase, s);
+  if (c <= 16) return launch<16>(a, phase, s);
+  if (c <= 24) return launch<24>(a, phase, s);
+  return launch<32>(a, phase, s);
 }

@@ -123,8 +123,11 @@ def build_library() -> Path:
 
 def library() -> ctypes.CDLL:
     """The kernel library, built and loaded once per process, with every
-    entry point's signature set."""
+    entry point's signature set. Each kernel's widest band, a constant of
+    its source, must equal its wrapper module's MAX_WIDTH (what the wrapper
+    and the Corrector test against): checked here, once."""
     global _lib
+    from ratatosk_tpu_torch.ops import beam_kernel, finish_kernel, sprint
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library()))
@@ -132,6 +135,13 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.restype = res
                 fn.argtypes = args
+            for export, mod in (("beam_search_max_width", beam_kernel),
+                                ("finish_bundle_max_width", finish_kernel),
+                                ("sprint_rows_max_width", sprint)):
+                if getattr(lib, export)() != mod.MAX_WIDTH:
+                    raise RuntimeError(
+                        f"{export}() is {getattr(lib, export)()}, "
+                        f"{mod.__name__}.MAX_WIDTH {mod.MAX_WIDTH}")
             _lib = lib
         return _lib
 

@@ -9,14 +9,21 @@ tensor it launches the kernel or raises.
 The reference computes it in plain JAX (ratatosk_tpu/correct/finish.py: a
 lax.scan over every target row of the bucket, then the gates); the plain
 torch version loops over those rows in Python. The kernel gives each region
-one warp that runs the banded target x path DP row by row and stops at the
+one warp that runs the banded target x path DP row by row, bit-parallel
+over the band's columns (csrc/finish.cu says how), and stops at the
 region's own last needed row, max(tgt_len, best_end): the decisions read
 the per-prefix minima only at tgt_len, at best_end and at the first argmax
 of i - 2*dmin[i] over i <= tgt_len, so it keeps those and nothing per row.
+It takes band widths up to MAX_WIDTH columns. The wrapper passes one
+constant table beside the inputs: the least prefix sum of each pair of
+difference bytes (int8 [65536], made once per device).
 """
 
 from __future__ import annotations
 
+import threading
+
+import numpy as np
 import torch
 
 from ratatosk_tpu_torch.correct import finish as FN
@@ -25,8 +32,52 @@ from ratatosk_tpu_torch.ops import cuda_lib
 # the pointer table of csrc/finish.cu's finish_bundle_launch, in its order
 PTRS = ("tgt_masks", "tgt_len", "tgt_qual", "best_seq", "best_len",
         "best_dist", "best_end", "second_dist", "completed", "scalars",
-        "seq_packed")
+        "seq_packed", "minpre")
 INTS = ("R", "NT", "L", "w", "qv_max", "min_k")
+# the widest band the kernel takes (csrc/finish.cu: kMaxW, 8 words a lane;
+# cuda_lib checks the library's export against it once, at load)
+MAX_WIDTH = 8192
+# shared memory of a block (the card's limit, checked in csrc/finish.cu)
+MAX_SHARED = 227 * 1024
+
+
+def refuses(NT: int, L: int, W: int):
+    """Why the kernel cannot take a launch of NT target rows, paths of L
+    bases and a W-column band, or None: the one test of its limits, which
+    the wrapper and engine.check_kernel_widths make. Shared memory (as
+    csrc/finish.cu's finish_bundle_launch lays it out) holds the 64 KiB
+    table, then for each of the block's 4 warps the two bit-planes of the
+    path's codes and the target's masks."""
+    if not 1 <= W <= MAX_WIDTH:
+        return f"a {W}-column finish band (at most {MAX_WIDTH})"
+    smem = (1 << 16) + 4 * 4 * (2 * (L // 32 + 2) + (NT + 3) // 4)
+    if smem > MAX_SHARED:
+        return (f"{L}-base paths at NT={NT} ({smem} bytes of shared memory, "
+                f"at most {MAX_SHARED})")
+    return None
+
+
+_tables: dict = {}
+_tables_lock = threading.Lock()
+
+
+def min_prefix_table() -> np.ndarray:
+    """int8 [65536]: at p | m << 8, the least of the 8 prefix sums (after
+    1..8 steps) of a byte of +1 differences p and -1 differences m."""
+    bits = (np.arange(256)[:, None] >> np.arange(8)) & 1
+    cum = np.cumsum(bits, axis=1)                       # [byte, step]
+    return (cum[None, :, :] - cum[:, None, :]).min(axis=2).astype(
+        np.int8).ravel()                                # [m, p] -> m*256+p
+
+
+def _table(dev) -> torch.Tensor:
+    """min_prefix_table() on device dev, made once (the copy is complete
+    when this returns, so any stream may read it)."""
+    with _tables_lock:
+        t = _tables.get(dev)
+        if t is None:
+            t = _tables[dev] = torch.tensor(min_prefix_table(), device=dev)
+        return t
 
 
 @cuda_lib.counted
@@ -55,10 +106,11 @@ def finish_bundle_kernel(tgt_masks, tgt_len, tgt_qual, qv_max: int,
         cuda_lib.check_tensor("finish_bundle_kernel", name, t,
                               types.get(name, torch.int32), shape, dev)
     lib = cuda_lib.library()
-    W = L + 1 if w <= 0 or w >= L + 1 else w
-    if not (1 <= W <= lib.finish_bundle_max_width() and NT >= 1 and L >= 1):
+    why = ("an empty target or path" if NT < 1 or L < 1
+           else refuses(NT, L, L + 1 if w <= 0 or w >= L + 1 else w))
+    if why:
         raise ValueError(f"finish_bundle_kernel: unsupported shape R={R} "
-                         f"NT={NT} L={L} w={w}")
+                         f"NT={NT} L={L} w={w}: {why}")
     stream = torch.cuda.current_stream(dev).cuda_stream
     return enqueue(lib, arrays, qv_max=qv_max, min_k=min_k, w=w,
                    min_score_open=min_score_open,
@@ -82,7 +134,8 @@ def enqueue(lib, arrays, *, qv_max, min_k, w, min_score_open, index, stream,
                                device=dev))
     if R == 0:
         return out
-    arrays = dict(arrays, scalars=out.scalars, seq_packed=out.seq_packed)
+    arrays = dict(arrays, scalars=out.scalars, seq_packed=out.seq_packed,
+                  minpre=_table(dev))
     ints = dict(R=R, NT=NT, L=L, w=w, qv_max=qv_max, min_k=min_k)
     err = lib.finish_bundle_launch(
         cuda_lib.pointer_table([arrays[n] for n in PTRS]), len(PTRS),

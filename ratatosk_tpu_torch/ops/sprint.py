@@ -17,7 +17,18 @@ import torch
 
 from ratatosk_tpu_torch.ops import cuda_lib
 
+# the widest band the kernel takes (csrc/sprint.cu: sprint_rows_max_width;
+# cuda_lib checks the library's export against it once, at load)
+MAX_WIDTH = 512
+
 BIG = 1 << 20
+
+
+def refuses(W: int):
+    """Why the kernel cannot take a W-column band, or None: the one test of
+    its width, which the wrapper and engine.check_kernel_widths make."""
+    return None if 1 <= W <= MAX_WIDTH else \
+        f"a {W}-column band (at most {MAX_WIDTH})"
 
 
 def sprint_rows_ref(rwin, btgt, nb_all, newcols, wsall, m_reg, live, plen, *,
@@ -76,7 +87,7 @@ def sprint_rows(rwin, btgt, nb_all, newcols, wsall, m_reg, live, plen, *,
             ("live", live, (R, B)), ("plen", plen, (R, B))):
         cuda_lib.check_tensor("sprint_rows", name, t, torch.int32, shape, dev)
     lib = cuda_lib.library()
-    if not (1 <= W <= lib.sprint_rows_max_width()) or S1 < 1 or B < 1:
+    if refuses(W) or S1 < 1 or B < 1:
         raise ValueError(f"sprint_rows: unsupported shape R={R} B={B} W={W} "
                          f"smax={smax}")
     rwin_out = torch.empty_like(rwin)

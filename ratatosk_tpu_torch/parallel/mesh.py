@@ -16,13 +16,22 @@ would run one after another; the fused kernels ("auto") enqueue a launch
 whole, and the slot's thread then waits in its read-back. The Corrector
 and sharded_beam_search split a launch the same way (SlotPool.submit_rows,
 then gather): a slot's upload, launch and read-back all happen inside its
-thread, on its stream, and it returns NumPy, so no tensor crosses streams. Rows are independent, so the gathered
-result equals one device's.
+thread, on its stream, and it returns NumPy, so no tensor crosses streams.
+
+Rows are independent but for one number: the reference steps every region
+until no region of the whole launch holds a live, unfrozen entry (the
+launch-wide step count T), and a region without a completed path walks
+back from step T-1. So the slots of a launch agree on T (StepCount): each
+runs phase 1 of the search on its rows (the fused kernel's launch 1, or
+correct.beam.beam_phase1), offers its own step count, waits for the
+launch's other slots, and runs phase 2 with the max. The gathered result
+equals one device's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -115,6 +124,28 @@ def make_mesh(n_devices: Optional[int] = None,
     return Mesh(devs)
 
 
+class StepCount:
+    """The launch-wide step count T of one launch split over mesh slots:
+    each slot offers the step count its own rows reached in phase 1, waits
+    for the launch's other slots, and goes on with the max. abort()
+    releases the waiting slots (they raise threading.BrokenBarrierError)
+    when one fails."""
+
+    def __init__(self, n_slots: int):
+        self._own: List[int] = []
+        self._lock = threading.Lock()
+        self._barrier = threading.Barrier(n_slots)
+
+    def agree(self, own: int) -> int:
+        with self._lock:
+            self._own.append(int(own))
+        self._barrier.wait()
+        return max(self._own)
+
+    def abort(self) -> None:
+        self._barrier.abort()
+
+
 class SlotPool:
     """One worker thread per mesh slot, each running its slot's work in
     submission order (Mesh.run_on_slot). A context manager: leaving it waits
@@ -126,29 +157,54 @@ class SlotPool:
         self._ex = [ThreadPoolExecutor(max_workers=1,
                                        thread_name_prefix=f"slot{i}")
                     for i in range(mesh.size)]
+        self._counts: List[StepCount] = []
 
     def submit(self, i: int, fn: Callable, *args) -> Future:
         return self._ex[i].submit(self.mesh.run_on_slot, i, fn, *args)
 
     def submit_rows(self, n_rows: int, fn: Callable,
                     n_real: Optional[int] = None) -> List[Future]:
-        """fn(device, rows) on every slot for its contiguous block `rows` (a
-        slice, slot_rows) of an n_rows batch. fn slices and uploads its
-        rows, launches and reads back on the slot's thread and stream, and
-        returns host arrays. A slot whose rows are all padding (rows.start
-        >= n_real) is not launched: the padding rows come last and nobody
-        reads their results. Futures in slot order, for gather()."""
+        """fn(device, rows, steps) on every slot for its contiguous block
+        `rows` (a slice, slot_rows) of an n_rows batch, `steps` the
+        launch's StepCount, whose agree() every such fn calls once. fn
+        slices and uploads its rows, launches and reads back on the slot's
+        thread and stream, and returns host arrays. A slot whose rows are
+        all padding (rows.start >= n_real) is not launched: the padding
+        rows come last and nobody reads their results, and they cannot
+        raise T. A padding row (pad_regions_to, engine.region_arrays) has
+        max_plen 1, so its one entry freezes in step 0 (f_r = 1), and every
+        row's entry is live and unfrozen before step 0, so the launch's T
+        is at least 1. Futures in slot order, for gather()."""
         n_real = n_rows if n_real is None else n_real
-        return [self.submit(i, fn, rows)
-                for i, rows in enumerate(slot_rows(n_rows, self.mesh))
-                if rows.start < n_real]
+        blocks = [(i, rows) for i, rows in
+                  enumerate(slot_rows(n_rows, self.mesh))
+                  if rows.start < n_real]
+        steps = StepCount(len(blocks))
+        self._counts.append(steps)
+
+        def run(dev, rows):
+            try:
+                return fn(dev, rows, steps)
+            except BaseException:
+                steps.abort()  # the other slots must not wait for this one
+                raise
+
+        return [self.submit(i, run, rows) for i, rows in blocks]
 
     def __enter__(self) -> "SlotPool":
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None:
+            # a slot whose partner was cancelled before it started would
+            # wait for it forever
+            for ex in self._ex:
+                ex.shutdown(wait=False, cancel_futures=True)
+            for steps in self._counts:
+                steps.abort()
         for ex in self._ex:
-            ex.shutdown(wait=True, cancel_futures=exc_type is not None)
+            ex.shutdown(wait=True)
+        self._counts.clear()
 
 
 def replicate_graph(g: DeviceGraph, mesh: Mesh) -> Dict[torch.device,
@@ -175,7 +231,12 @@ def slot_rows(r: int, mesh: Mesh) -> List[slice]:
 
 def gather(futs: Sequence[Future]) -> tuple:
     """The slots' host arrays (each future gives a tuple of them)
-    concatenated in slot order, item by item. The first failure raises."""
+    concatenated in slot order, item by item. Waits for every slot; the
+    first failure raises, before the aborted StepCount waits it caused."""
+    errs = [e for e in (f.exception() for f in futs) if e is not None]
+    if errs:
+        raise min(errs, key=lambda e: isinstance(e,
+                                                 threading.BrokenBarrierError))
     parts = [f.result() for f in futs]
     return tuple(np.concatenate(x) for x in zip(*parts))
 
@@ -214,18 +275,19 @@ def sharded_beam_search(g: DeviceGraph, rb: BM.RegionBatch, mesh: Mesh, *,
                         beam: int, lmax: int, min_cov: int = 2, band: int = 0,
                         impl: str = "auto") -> BM.BeamResult:
     """beam_search with the regions split over the mesh's slots and the
-    graph replicated: every slot searches its rows at the same time. The
-    result is gathered on slot 0's device, in row order."""
+    graph replicated: every slot searches its rows at the same time, with
+    the launch-wide step count (StepCount). The result is gathered on slot
+    0's device, in row order."""
     n = mesh.size
     r = rb.tgt_masks.shape[0]
     rp = -(-r // n) * n
     rb = pad_regions_to(rb, rp)
     graphs = replicate_graph(g, mesh)
 
-    def slot(dev, rows):
+    def slot(dev, rows, steps):
         res = BM.beam_search(graphs[dev], region_rows(rb, rows, dev),
                              beam=beam, lmax=lmax, min_cov=min_cov,
-                             band=band, impl=impl)
+                             band=band, impl=impl, launch_t=steps.agree)
         return tuple(getattr(res, f).cpu().numpy() for f in BM.FIELDS)
 
     with SlotPool(mesh) as pool:

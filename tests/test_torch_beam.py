@@ -40,6 +40,22 @@ def test_beam_search_by_region_matches_jax(case):
                                       np.asarray(getattr(want, f)), err_msg=f)
 
 
+@pytest.mark.parametrize("case", list(TP.WIDE))
+def test_beam_search_wide_bands_match_jax(case):
+    """band_width=600 in the 2048 bucket and weak_region_len_factor=0.6 in
+    the 256 bucket (the widths the kernels took only up to 512 columns):
+    the port's CPU route equals the JAX beam_search, all seven fields."""
+    corr, jrb, lmax, band, want = TP.wide_case(case)
+    assert np.asarray(want.completed).any(), "fixture must complete regions"
+    if band:
+        assert (np.asarray(jrb.tgt_len) > band).sum() >= 4
+    got = TBM.beam_search(TP.to_torch_graph(corr.g), TP.to_torch_regions(jrb),
+                          beam=8, lmax=lmax, min_cov=2, band=band)
+    for f in TBM.FIELDS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), err_msg=f)
+
+
 _ENTRY = ("tip", "off", "plen", "live", "cmin", "frozen", "compl_", "fdist",
           "fend", "ccsum", "nvis")
 _REGION = ("pcount", "cbest", "cstep", "ccand", "cplen", "csecond", "cnum",

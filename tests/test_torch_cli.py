@@ -143,7 +143,9 @@ def test_correct_from_index_matches_jax(dataset, indexes, graph):
 
 def test_batch_regions_default_keeps_output(dataset):
     """The port's --batch-regions default (512, CorrectOpt's) writes the
-    same FASTQ as the JAX CLI's 64: padding rows of a launch are inert."""
+    same FASTQ as the JAX CLI's 64 on this data: padding rows of a launch
+    are inert, and the one step a launch's longest region skips (the
+    launch-wide step count) changes no region here."""
     tmp, _, sr, lr = dataset
     argv = ["correct", "-s", sr, "-l", lr, "-1", "-k", str(K1), "-K", str(K2),
             "--beam-width", "8", "--devices", "1"]

@@ -23,6 +23,7 @@ from ratatosk_tpu_torch.correct import finish as FN
 from ratatosk_tpu_torch.correct.engine import region_arrays
 from ratatosk_tpu_torch.ops.beam_kernel import fused_beam_search
 from ratatosk_tpu_torch.ops.finish_kernel import finish_bundle_kernel
+from tests import finish_cases as FC
 
 # (NT, band) of the engine's three buckets (engine._launch_bucket): the
 # exact 256 bucket (beam W=257, finish W=lmax+1=389), then bands of 192 and
@@ -58,6 +59,27 @@ def region_batch(W: int, device, r_pad: int = 32):
     arrays, lmax = region_arrays(specs, nt, corr.colors.cap, r_pad=r_pad)
     return (corr.g.to(device), BM.RegionBatch.from_numpy(arrays, device),
             lmax, band)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_specs():
+    """Regions of 600-915 bases (a toy graph under noisier reads): a band
+    of 600 columns or more moves along them."""
+    opt = CorrectOpt(small_k=21, k=63, beam_width=8, batch_regions=32)
+    genome, corr = testing.build_toy_corrector(seed=5, glen=30000, k=21,
+                                               coverage=25.0, opt=opt,
+                                               device="cpu")
+    specs = testing.toy_region_specs(corr, genome,
+                                     np.random.default_rng(5), 120, err=0.15)
+    return corr, sorted((s for s in specs if 600 < len(s.tgt) <= 2048),
+                        key=lambda s: len(s.tgt))[-8:]
+
+
+def wide_batch(device):
+    """(graph, RegionBatch, lmax) of the wide regions in the 2048 bucket."""
+    corr, specs = _wide_specs()
+    arrays, lmax = region_arrays(specs, 2048, corr.colors.cap, r_pad=8)
+    return corr.g.to(device), BM.RegionBatch.from_numpy(arrays, device), lmax
 
 
 def _finish(fn, rb, res, band, k=21):
@@ -166,6 +188,128 @@ def test_finish_kernel_matches_plain_on_card(cuda_device, W):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["padding", "one_long", "none_complete",
+                                  "ties"])
+def test_finish_kernel_edge_batches_on_card(cuda_device, kind, W=192):
+    g, rb, lmax, band = edge_batch(kind, W, cuda_device)
+    res = BM.beam_search(g, rb, beam=16, lmax=lmax, band=band, impl="torch")
+    got = _finish(finish_bundle_kernel, rb, res, band)
+    torch.cuda.synchronize()
+    want = _finish(FN.finish_bundle, rb, res, band)
+    assert torch.equal(got.scalars, want.scalars)
+    assert torch.equal(got.seq_packed, want.seq_packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(FC.SHAPES))
+def test_finish_kernel_synthetic_on_card(cuda_device, shape):
+    """tests/finish_cases.py's regions (window clamped at both ends, paths
+    shorter than the band, empty paths, N masks) at band widths of 1 to
+    2,100 columns and full rows of 389 and 1,100 (2 and 4 words a lane
+    past 1,024)."""
+    NT, L, w = FC.SHAPES[shape]
+    arrs = {k: torch.tensor(v, device=cuda_device)
+            for k, v in FC.finish_case(sum(map(ord, shape)), NT, L).items()}
+    res = BM.BeamResult(**{f: arrs[f] for f in BM.FIELDS})
+    args = (arrs["tgt_masks"], arrs["tgt_len"], arrs["tgt_qual"], QV_MAX, 21,
+            res)
+    kw = dict(w=w, min_score_open=MIN_SCORE_OPEN)
+    got = finish_bundle_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    want = FN.finish_bundle(*args, **kw)
+    assert torch.equal(got.scalars, want.scalars)
+    assert torch.equal(got.seq_packed, want.seq_packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [600, 1024])
+def test_fused_beam_kernel_wide_band_on_card(cuda_device, band):
+    """Bands past 512 columns (24 and 32 columns a lane) on regions longer
+    than the band, and the finish kernel after it."""
+    g, rb, lmax = wide_batch(cuda_device)
+    got = BM.beam_search(g, rb, beam=16, lmax=lmax, band=band, impl="auto")
+    torch.cuda.synchronize()
+    want = BM.beam_search(g, rb, beam=16, lmax=lmax, band=band, impl="torch")
+    for f in BM.FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    fg = _finish(finish_bundle_kernel, rb, want, band)
+    torch.cuda.synchronize()
+    fw = _finish(FN.finish_bundle, rb, want, band)
+    assert torch.equal(fg.scalars, fw.scalars)
+    assert torch.equal(fg.seq_packed, fw.seq_packed)
+
+
+@pytest.mark.cuda
+def test_kernel_width_caps_match_the_library(cuda_device):
+    from ratatosk_tpu_torch.ops import beam_kernel, cuda_lib, finish_kernel
+    from ratatosk_tpu_torch.ops import sprint
+    lib = cuda_lib.library()
+    assert lib.beam_search_max_width() == beam_kernel.MAX_WIDTH == 1024
+    assert lib.finish_bundle_max_width() == finish_kernel.MAX_WIDTH == 8192
+    assert lib.sprint_rows_max_width() == sprint.MAX_WIDTH
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt_kw", [dict(band_width=600),
+                                    dict(weak_region_len_factor=0.6)])
+def test_wide_options_run_through_both_kernels_on_card(cuda_device, opt_kw):
+    """Corrector(band_width=600) and (weak_region_len_factor=0.6) on the
+    card launch both kernels and correct reads as the CPU does."""
+    opt = CorrectOpt(small_k=21, k=63, beam_width=8, batch_regions=32,
+                     **opt_kw)
+    genome, corr = testing.build_toy_corrector(seed=5, glen=30000, k=21,
+                                               coverage=25.0, opt=opt,
+                                               device=cuda_device)
+    rng = np.random.default_rng(5)
+    reads = [testing.noisy_read(rng, genome, 3000 * i, 2500, err=0.15)[0]
+             for i in range(4)]
+    _, cpu = testing.build_toy_corrector(seed=5, glen=30000, k=21,
+                                         coverage=25.0, opt=opt,
+                                         device="cpu")
+    before = fused_beam_search.launches, finish_bundle_kernel.launches
+    got = corr.correct_batch(reads)
+    assert fused_beam_search.launches > before[0]
+    assert finish_bundle_kernel.launches > before[1]
+    for a, b in zip(got, cpu.correct_batch(reads)):
+        np.testing.assert_array_equal(a.codes, b.codes)
+        np.testing.assert_array_equal(a.qual, b.qual)
+
+
+@pytest.mark.cuda
+def test_mesh_slots_share_the_launch_wide_step_count_on_card(
+        cuda_device, monkeypatch):
+    """Two slots on one card (two streams): sharded_beam_search on the
+    "auto" route, the regions sorted by their own step count so that the
+    slots' own counts differ. Each slot's launch 2 reads the launch's T
+    (the larger) from its t_launch, and the result equals one launch's."""
+    from ratatosk_tpu_torch.ops import beam_kernel as BK
+    from ratatosk_tpu_torch.parallel import mesh as TM
+    g, rb, lmax, band = region_batch(257, "cpu", r_pad=16)
+    f = [BM.beam_phase1(g, BM._rows(rb, r), beam=16, lmax=lmax,
+                        band=band).f for r in range(16)]
+    order = torch.as_tensor(np.argsort(f, kind="stable"))
+    rb = BM.RegionBatch(**{n: getattr(rb, n)[order].to(cuda_device)
+                           for n in BM.RegionBatch._DTYPES})
+    f = sorted(f)
+    assert max(f[:8]) < max(f[8:])
+    seen, launch2 = [], BK.enqueue_launch2
+
+    def spy(q):
+        seen.append(int(q.t_launch.item()))
+        return launch2(q)
+    monkeypatch.setattr(BK, "enqueue_launch2", spy)
+    mesh = TM.make_mesh(devices=[cuda_device, cuda_device])
+    g = g.to(cuda_device)
+    got = TM.sharded_beam_search(g, rb, mesh, beam=16, lmax=lmax, band=band,
+                                 impl="auto")
+    assert seen == [max(f), max(f)]
+    want = BM.beam_search(g, rb, beam=16, lmax=lmax, band=band, impl="auto")
+    for fl in BM.FIELDS:
+        assert torch.equal(getattr(got, fl).to(cuda_device),
+                           getattr(want, fl)), fl
+
+
+@pytest.mark.cuda
 def test_fused_beam_wrapper_rejects_bad_inputs_on_card(cuda_device):
     g, rb, lmax, band = region_batch(192, cuda_device, r_pad=8)
     kw = dict(beam=16, lmax=lmax, band=band)
@@ -269,7 +413,8 @@ def test_finish_launch_passes_the_tables_in_order_and_raises_on_error():
                                             qv_max=QV_MAX, min_k=21)
     assert rest[0] == MIN_SCORE_OPEN
     assert ptrs == [arrays[n].data_ptr() for n in FK.PTRS[:9]] + [
-        out.scalars.data_ptr(), out.seq_packed.data_ptr()]
+        out.scalars.data_ptr(), out.seq_packed.data_ptr(),
+        FK._table(torch.device("cpu")).data_ptr()]
     assert tuple(out.seq_packed.shape) == (8, -(-lmax // 16))
     with pytest.raises(RuntimeError, match="finish kernel launch failed"):
         FK.enqueue(_FakeLib("finish_bundle_launch", [1]), arrays,
@@ -277,3 +422,51 @@ def test_finish_launch_passes_the_tables_in_order_and_raises_on_error():
                    min_score_open=MIN_SCORE_OPEN, index=0, stream=None,
                    counted=lambda: counted.append(1))
     assert len(counted) == 1
+
+
+@pytest.mark.parametrize("opt_kw,impl,match", [
+    (dict(band_width=1100), "auto", "band_width=1100"),
+    (dict(band_width=600), "steps", "band_width=600"),
+    (dict(weak_region_len_factor=16.0), "auto", "finish band"),
+    (dict(weak_region_len_factor=14.0), "auto", "shared memory"),
+])
+def test_corrector_refuses_kernel_widths_at_construction(opt_kw, impl,
+                                                         match):
+    """Options whose bands (or, for the finish kernel, paths) a kernel
+    cannot take raise ValueError naming the option when the Corrector is
+    built for a CUDA device, before anything is uploaded or planned;
+    impl="torch" and the CPU take every width."""
+    from ratatosk_tpu_torch.correct.engine import (Corrector,
+                                                   check_kernel_widths)
+    corr, _ = _specs()
+    opt = CorrectOpt(small_k=21, k=63, **opt_kw)
+    with pytest.raises(ValueError, match=match) as err:
+        Corrector(corr.cdbg, corr.colors, opt, device="cuda", impl=impl)
+    assert next(iter(opt_kw)) in str(err.value)
+    check_kernel_widths(opt, "torch")
+    Corrector(corr.cdbg, corr.colors, opt, device="cpu", impl=impl)
+
+
+@pytest.mark.parametrize("module,args", [
+    ("beam_kernel", lambda w: (w,)),
+    ("sprint", lambda w: (w,)),
+    ("finish_kernel", lambda w: (256, w, w)),
+])
+def test_each_kernel_refuses_one_column_past_its_cap(module, args):
+    """A kernel's refuses() (the wrapper's and the Corrector's one test of
+    its widths) takes every band up to MAX_WIDTH and names the band past
+    it."""
+    import importlib
+    mod = importlib.import_module(f"ratatosk_tpu_torch.ops.{module}")
+    cap = mod.MAX_WIDTH
+    assert mod.refuses(*args(1)) is None
+    assert mod.refuses(*args(cap)) is None
+    assert f"{cap + 1}-column" in mod.refuses(*args(cap + 1))
+
+
+@pytest.mark.parametrize("opt_kw", [dict(), dict(band_width=600),
+                                    dict(band_width=1024),
+                                    dict(weak_region_len_factor=0.6)])
+def test_kernel_widths_up_to_the_caps_are_taken(opt_kw):
+    from ratatosk_tpu_torch.correct.engine import check_kernel_widths
+    check_kernel_widths(CorrectOpt(**opt_kw), "auto")

@@ -87,8 +87,8 @@ def test_pad_and_shard_regions():
     # launched, and the gather covers the real rows in order
     with TM.SlotPool(cpu_mesh(3)) as pool:
         futs = pool.submit_rows(
-            6, lambda dev, rows: (TM.region_rows(padded, rows, dev)
-                                  .tgt_len.numpy(),), n_real=3)
+            6, lambda dev, rows, steps: (TM.region_rows(padded, rows, dev)
+                                         .tgt_len.numpy(),), n_real=3)
         got, = TM.gather(futs)
     assert len(futs) == 2
     np.testing.assert_array_equal(got, padded.tgt_len[:4].numpy())
@@ -226,3 +226,157 @@ def test_mesh_rejects_missing_devices():
         TM.make_mesh(3, devices=["cpu", "cpu"])
     with pytest.raises(TypeError):
         TCorrector(None, None, TOpt())
+
+
+class _StepSpy:
+    """Records, per thread, each search's phase-1 and phase-2 step loops
+    (correct.beam._run_steps) and each slot's StepCount.agree (its own step
+    count, the launch's T, which launch)."""
+
+    def __init__(self, monkeypatch):
+        import threading
+        self.runs, self.agrees = {}, {}
+        run_steps, agree = TBM._run_steps, TM.StepCount.agree
+
+        def spy_run(g, rb, pt, st, t0, t_stop, *, until_frozen, **kw):
+            st, t = run_steps(g, rb, pt, st, t0, t_stop,
+                              until_frozen=until_frozen, **kw)
+            self.runs.setdefault(threading.get_ident(), []).append(
+                (until_frozen, t0, t_stop, t))
+            return st, t
+
+        def spy_agree(steps, own):
+            T = agree(steps, own)
+            self.agrees.setdefault(threading.get_ident(), []).append(
+                (id(steps), own, T))
+            return T
+
+        monkeypatch.setattr(TBM, "_run_steps", spy_run)
+        monkeypatch.setattr(TM.StepCount, "agree", spy_agree)
+
+    def launches(self):
+        """[(T, [(own f, phase-2 steps run), one per slot])] per launch:
+        checks that each slot's phase 1 ran from step 0 until its rows
+        froze (its own f), agreed that f, and ran phase 2 from f to
+        min(T, f+1)."""
+        by_launch = {}
+        for tid, agrees in self.agrees.items():
+            runs = self.runs[tid]
+            assert len(runs) == 2 * len(agrees)
+            for (key, own, T), p1, p2 in zip(agrees, runs[::2], runs[1::2]):
+                assert p1[0] and p1[1] == 0 and p1[3] == own
+                assert not p2[0] and p2[1] == own
+                assert p2[2] == p2[3] == min(T, own + 1)
+                by_launch.setdefault(key, []).append((own, T, p2[3]))
+        out = []
+        for slots in by_launch.values():
+            T = max(own for own, _, _ in slots)
+            assert all(t == T for _, t, _ in slots), slots
+            out.append((T, [(own, steps) for own, _, steps in slots]))
+        return out
+
+
+def _by_own_steps(rb, lmax, band, g):
+    """The rows of rb ordered by each region's own all-frozen step f_r."""
+    f = [TBM.beam_phase1(g, TBM._rows(rb, r), beam=8, lmax=lmax, band=band).f
+         for r in range(rb.tgt_masks.shape[0])]
+    order = torch.as_tensor(np.argsort(f, kind="stable"))
+    return TBM.RegionBatch(**{n: getattr(rb, n)[order]
+                              for n in TBM.RegionBatch._DTYPES}), sorted(f)
+
+
+@pytest.mark.parametrize("impl", ["torch", "auto"])
+def test_mesh_slots_run_phase2_with_the_launch_wide_step_count(
+        impl, monkeypatch):
+    """Two CPU slots whose longest regions differ (the regions sorted by
+    their own f_r, so slot 0 holds the shorter half): each slot runs phase
+    1 to its own step count, both agree on the launch's T (the larger), and
+    each runs phase 2 to min(T, f+1) steps: slot 0 one step more than it
+    would alone. The gathered result equals one slot's (and the plain
+    route's) field for field."""
+    corr, jrb, lmax, band, _ = PAR.beam_case("nt256_exact")
+    g = PAR.to_torch_graph(corr.g)
+    rb, f = _by_own_steps(PAR.to_torch_regions(jrb), lmax, band, g)
+    n = len(f)
+    assert max(f[:n // 2]) < max(f[n // 2:]), f
+    spy = _StepSpy(monkeypatch)
+    got = TM.sharded_beam_search(g, rb, cpu_mesh(2), beam=8, lmax=lmax,
+                                 min_cov=2, band=band, impl=impl)
+    (T, slots), = spy.launches()
+    assert T == max(f)
+    assert sorted(slots) == sorted([(max(f[:n // 2]), max(f[:n // 2]) + 1),
+                                    (T, T)])
+    one = TBM.beam_search(g, rb, beam=8, lmax=lmax, min_cov=2, band=band,
+                          impl="torch")
+    for fl in TBM.FIELDS:
+        assert torch.equal(getattr(got, fl), getattr(one, fl)), fl
+
+
+def test_mesh_corrector_launches_use_the_launch_wide_step_count(monkeypatch):
+    """Corrector(mesh=2 CPU slots).correct_batch: in every launch both
+    slots run phase 2 with the launch's T, read from the step loops; some
+    launch's slots reach different step counts of their own; the corrected
+    reads equal the one-device Corrector's."""
+    rng = np.random.default_rng(100)
+    genome = sim.random_genome(rng, 12000, repeat_frac=0.0, repeat_len=200)
+    sreads = sim.short_reads(rng, genome, coverage=40.0, read_len=120)
+    reads = [x[0] for x in sim.long_reads(rng, genome, n=3, min_len=1500,
+                                          max_len=2500, err=0.10)]
+    # launches of 8 rows: 4 a slot, so both slots hold real regions
+    kw = dict(small_k=21, k=63, beam_width=8, batch_regions=8)
+    cdbg = TB.build_cdbg(sreads, 21, min_count=2)
+    colors = t_color_graph(cdbg, sreads)
+    want = TCorrector(cdbg, colors, TOpt(**kw), device="cpu").correct_batch(
+        reads)
+    spy = _StepSpy(monkeypatch)
+    got = TCorrector(cdbg, colors, TOpt(**kw),
+                     mesh=cpu_mesh(2)).correct_batch(reads)
+    launches = spy.launches()
+    assert launches and all(len(s) == 2 for _, s in launches)
+    assert any(own < T for T, s in launches for own, _ in s)
+    for g_, w in zip(got, want):
+        np.testing.assert_array_equal(g_.codes, w.codes)
+        np.testing.assert_array_equal(g_.qual, w.qual)
+
+
+def test_padding_rows_cannot_raise_the_step_count():
+    """A slot of padding rows only is not launched (SlotPool.submit_rows):
+    padding rows freeze in step 0 (f = 1) and every real row runs step 0,
+    so the launch's T is the real slots' alone."""
+    corr, jrb, lmax, band, _ = PAR.beam_case("nt256_exact")
+    g = PAR.to_torch_graph(corr.g)
+    rb = TM.pad_regions_to(PAR.to_torch_regions(jrb), 24)
+    n_real = jrb.tgt_len.shape[0]
+    pad = TM.region_rows(rb, slice(n_real, 24), "cpu")
+    assert TBM.beam_phase1(g, pad, beam=8, lmax=lmax, band=band).f == 1
+    for r in range(n_real):
+        assert TBM.beam_phase1(g, TBM._rows(rb, r), beam=8, lmax=lmax,
+                               band=band).f >= 1
+
+
+def test_step_count_waits_end_when_a_slot_fails():
+    """A slot that raises before it offers its step count releases the
+    launch's other slots (their agree raises BrokenBarrierError), and
+    gather raises the slot's own error; a pool left by an exception
+    releases a slot waiting for one that never started."""
+    import threading
+
+    def fn(dev, rows, steps):
+        if rows.start:
+            raise ValueError("slot 1 failed")
+        return (np.array([steps.agree(3)]),)
+
+    with TM.SlotPool(cpu_mesh(2)) as pool:
+        futs = pool.submit_rows(4, fn)
+        with pytest.raises(ValueError, match="slot 1 failed"):
+            TM.gather(futs)
+    assert isinstance(futs[0].exception(), threading.BrokenBarrierError)
+    block = threading.Event()
+    with pytest.raises(RuntimeError, match="left"):
+        with TM.SlotPool(cpu_mesh(2)) as pool:
+            pool.submit(1, lambda dev: block.wait(5))
+            futs = pool.submit_rows(4, lambda dev, rows, steps:
+                                    (np.array([steps.agree(1)]),))
+            raise RuntimeError("left")
+    block.set()
+    assert all(f.done() for f in futs)

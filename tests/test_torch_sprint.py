@@ -87,13 +87,52 @@ def test_no_silent_fallback_off_the_cpu():
         SP.sprint_rows(*arrs, smax=8)
 
 
+def _fake_library(**widths):
+    """Stands in for the loaded kernel library: every entry point, the
+    *_max_width exports returning the wrappers' caps (or `widths`)."""
+    import types
+
+    from ratatosk_tpu_torch.ops import beam_kernel, finish_kernel
+
+    def entry(value=None):
+        def fn(*args):
+            return value
+        return fn
+    caps = dict(dict(sprint_rows_max_width=SP.MAX_WIDTH,
+                     beam_search_max_width=beam_kernel.MAX_WIDTH,
+                     finish_bundle_max_width=finish_kernel.MAX_WIDTH),
+                **widths)
+    return types.SimpleNamespace(**{
+        name: entry(caps.get(name)) for name in (
+            "sprint_rows_launch", "sprint_rows_max_width",
+            "beam_search_launch", "beam_search_max_width",
+            "finish_bundle_launch", "finish_bundle_max_width")})
+
+
+def test_library_load_refuses_a_width_cap_its_wrapper_does_not_share(
+        monkeypatch):
+    """A kernel's widest band is a constant of its source and its wrapper's
+    MAX_WIDTH: loading a library whose export differs raises, once, before
+    any launch."""
+    from ratatosk_tpu_torch.ops import cuda_lib
+    monkeypatch.setattr(cuda_lib, "_lib", None)
+    monkeypatch.setattr(cuda_lib, "build_library", lambda: "libfake.so")
+    monkeypatch.setattr(cuda_lib.ctypes, "CDLL", lambda path: _fake_library(
+        finish_bundle_max_width=4096))
+    with pytest.raises(RuntimeError, match="finish_bundle_max_width"):
+        cuda_lib.library()
+    assert cuda_lib._lib is None
+    monkeypatch.setattr(cuda_lib.ctypes, "CDLL",
+                        lambda path: _fake_library())
+    assert cuda_lib.library() is cuda_lib._lib
+
+
 def test_library_builds_once_under_concurrent_first_use(monkeypatch):
     """Mesh slots reach their first launch from several threads at once:
     the library is built and loaded once, every thread gets it, and every
     entry point of the three kernels has its signature set."""
     import threading
     import time
-    import types
 
     from ratatosk_tpu_torch.ops import cuda_lib
 
@@ -106,11 +145,7 @@ def test_library_builds_once_under_concurrent_first_use(monkeypatch):
 
     def fake_cdll(path):
         loads.append(path)
-        return types.SimpleNamespace(**{
-            name: types.SimpleNamespace() for name in (
-                "sprint_rows_launch", "sprint_rows_max_width",
-                "beam_search_launch", "beam_search_max_width",
-                "finish_bundle_launch", "finish_bundle_max_width")})
+        return _fake_library()
 
     monkeypatch.setattr(cuda_lib, "_lib", None)
     monkeypatch.setattr(cuda_lib, "build_library", slow_build)

@@ -67,6 +67,31 @@ def beam_case(case):
     return corr, rb, lmax, band, res
 
 
+# (case, NT, band, len_factor): bands wider than 512 columns:
+# band_width=600 in the 2048 bucket on regions longer than 600,
+# and weak_region_len_factor=0.6 in the 256 bucket (lmax 568: the finish's
+# full path row is 569 columns)
+WIDE = {"nt2048_band600": (2048, 600, 0.25),
+        "nt256_factor06": (256, 0, 0.6)}
+
+
+@functools.lru_cache(maxsize=None)
+def wide_case(case):
+    """(JAX corrector, JAX RegionBatch, lmax, band, JAX BeamResult)."""
+    nt, band, factor = WIDE[case]
+    genome, corr = _corrector(5, 30000, 21, 25.0)
+    specs = JT.toy_region_specs(corr, genome, np.random.default_rng(5), 120,
+                                err=0.15)
+    lo = band if band else 0
+    specs = sorted((s for s in specs if lo < len(s.tgt) <= nt),
+                   key=lambda s: len(s.tgt))[-8:]
+    rb, lmax = jax_region_batch(specs, nt, corr.colors.cap, r_pad=8,
+                                len_factor=factor)
+    res = JBM.beam_search(corr.g, rb, beam=8, lmax=lmax, min_cov=2,
+                          band=band)
+    return corr, rb, lmax, band, res
+
+
 def to_torch_graph(jg) -> DeviceGraph:
     return DeviceGraph.from_numpy(
         {f: np.asarray(getattr(jg, f))
