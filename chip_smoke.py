@@ -48,7 +48,9 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      through fresh Correctors on the slice's graphs: byte-identical to the
      slice, the warm pass seconds and corrected bases/s of one card (the
      slice's own passes are the process's first and carry first-use
-     costs); [mesh] and [sharded] are compared with these;
+     costs); [mesh] and [sharded] are compared with these. For each pass,
+     with the card's name and power limit: peak allocated and reserved
+     device memory (peaks reset before the pass) and the host's peak RSS;
   5. [plain] pass 1 on the first 16 long reads through impl="auto", "steps"
      (per-step torch with the sprint kernel) and "torch" (plain): the three
      FASTQ files must be byte-identical, and each route launch only its own
@@ -1041,11 +1043,15 @@ def make_slots(torch):
     return M.make_mesh(devices=devs), how
 
 
-def _two_passes(tag: str, sl: dict, workdir: str, place: dict, **opt_kw):
+def _two_passes(tag: str, sl: dict, workdir: str, place: dict, mem=None,
+                **opt_kw):
     """Both passes of the slice through fresh Correctors on the slice's
     graphs, placed by `place` (device=... or mesh=...); the FASTQ files must
-    equal the slice's. Returns (launches, pass seconds)."""
+    equal the slice's. Returns (launches, pass seconds). A dict `mem` gets
+    each pass's peak allocated and reserved memory of the current device
+    (peaks reset before the pass) and the process's peak RSS after it."""
     import dataclasses
+    import resource
     import torch
     from ratatosk_tpu_torch.correct.engine import Corrector
     from ratatosk_tpu_torch.pipeline import correct_file
@@ -1064,10 +1070,16 @@ def _two_passes(tag: str, sl: dict, workdir: str, place: dict, **opt_kw):
     for p, corr, o, src, ref in ((1, corr1, o1, sl["lr_path"], sl["p1_path"]),
                                  (2, corr2, o2, sl["p1_path"], sl["p2_path"])):
         out = os.path.join(workdir, f"{tag}.p{p}.fastq")
+        if mem is not None:
+            torch.cuda.reset_peak_memory_stats()
         t = time.time()
         correct_file(corr, o, [src], out, p)
         torch.cuda.synchronize()
         secs[p] = time.time() - t
+        if mem is not None:
+            mem[p] = (torch.cuda.max_memory_allocated(),
+                      torch.cuda.max_memory_reserved(),
+                      resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
         if Path(out).read_bytes() != Path(ref).read_bytes():
             raise AssertionError(f"[{tag}] pass-{p} FASTQ differs from the "
                                  "single-device slice's")
@@ -1081,7 +1093,8 @@ def phase_warm(sl: dict, workdir: str, dev, smi: str):
     fresh Correctors on the slice's graphs: the slice's own passes are the
     first in the process and carry its first-use costs, so the rate of one
     card and the mesh's comparison are read here."""
-    launches, secs = _two_passes("warm", sl, workdir, dict(device=dev))
+    mem = {}
+    launches, secs = _two_passes("warm", sl, workdir, dict(device=dev), mem)
     t = sl["times"]
     dt = secs[1] + secs[2]
     sl["warm"] = secs
@@ -1091,6 +1104,10 @@ def phase_warm(sl: dict, workdir: str, dev, smi: str):
         f"the slice; {sl['bases']} bases in {dt:.2f}s: "
         f"{sl['bases'] / dt:.1f} corrected bases/s on {smi or dev}; "
         f"{launches} kernel launches")
+    for p, (alloc, reserved, rss_kb) in mem.items():
+        log(f"[warm] pass {p} memory on {smi or dev}: peak allocated "
+            f"{alloc} B, peak reserved {reserved} B; host peak RSS "
+            f"{rss_kb} KiB")
     return launches
 
 

@@ -328,8 +328,10 @@ class Corrector:
         self._cur_hap = -1   # haplotype of the read being planned
         # wall-time breakdown (seconds), for bench/verbose reporting. With a
         # mesh, "launch" is the queueing of the slots' work and "finish"
-        # includes waiting for it
-        self.timers = {"plan": 0.0, "launch": 0.0, "finish": 0.0}
+        # includes waiting for it. "wait": pipeline.correct_file's double
+        # buffer waiting for the next batch's plan
+        self.timers = {"plan": 0.0, "launch": 0.0, "finish": 0.0,
+                       "wait": 0.0}
 
     # ---------- helpers ----------
 

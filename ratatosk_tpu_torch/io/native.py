@@ -1,21 +1,20 @@
 """ctypes bindings for the native FASTA/FASTQ parser (native/fastx.cpp).
 
-Lazily builds native/libfastx.so with native/build.sh on first use; falls
-back to the pure-Python parser (io/fastx.py) if no toolchain is available.
+Builds libfastx.so from native/fastx.cpp on first use, into the port's own
+build directory (native_build.py); falls back to the pure-Python parser
+(io/fastx.py) if no toolchain is available.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 import subprocess
 from typing import Iterator, Optional
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libfastx.so")
+from ratatosk_tpu_torch.native_build import build_native
+
 _lib = None
 _lib_failed = False
 
@@ -24,13 +23,8 @@ def _load() -> Optional[ctypes.CDLL]:
     global _lib, _lib_failed
     if _lib is not None or _lib_failed:
         return _lib
-    src = os.path.join(_NATIVE_DIR, "fastx.cpp")
     try:
-        if (not os.path.exists(_LIB_PATH)
-                or os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)):
-            subprocess.run(["sh", os.path.join(_NATIVE_DIR, "build.sh")],
-                           check=True, capture_output=True)
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(build_native("fastx"))
         lib.fx_open.restype = ctypes.c_void_p
         lib.fx_open.argtypes = [ctypes.c_char_p]
         lib.fx_next_batch.restype = ctypes.c_int64

@@ -3,8 +3,9 @@
 Host-side companion to the device DP (ops/align.py): the engine aligns only
 chosen winners on host (per-base quality classes, partial trims, splice
 distances — reference getScorePath string overload GraphTraversal.cpp:722-772
-and generateConsensus Alignment.cpp:309-470). Lazily builds
-native/libralign.so; callers fall back to the NumPy DP (ops/cigar.py) when no
+and generateConsensus Alignment.cpp:309-470). Builds
+libralign.so on first use, into the port's own build directory
+(native_build.py); callers fall back to the NumPy DP (ops/cigar.py) when no
 toolchain is available.
 """
 
@@ -17,9 +18,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libralign.so")
+from ratatosk_tpu_torch.native_build import build_native
+
 _lib = None
 _lib_failed = False
 
@@ -33,14 +33,8 @@ def _load():
     global _lib, _lib_failed
     if _lib is not None or _lib_failed:
         return _lib
-    src = os.path.join(_NATIVE_DIR, "align.cpp")
     try:
-        if (not os.path.exists(_LIB_PATH)
-                or os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)):
-            subprocess.run(
-                ["sh", os.path.join(_NATIVE_DIR, "build.sh"), "align"],
-                check=True, capture_output=True)
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(build_native("align"))
         lib.aln_one.restype = ctypes.c_int32
         lib.aln_one.argtypes = [
             _U8P, ctypes.c_int32, _U8P, ctypes.c_int32, ctypes.c_int32,

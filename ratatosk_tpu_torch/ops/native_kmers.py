@@ -5,7 +5,9 @@ graph/keys.py and correct/seeds.py: rolling canonical packing, sorted-index
 exact lookup, and the batched 1-edit seed probe. These are the host hot paths
 of planning and index construction (the roles Bifrost's KmerHashIterator and
 CompactedDBG::find/searchSequence play in the reference, SURVEY.md §2.3).
-Callers fall back to the numpy implementations when no toolchain is available.
+Builds libkmers.so on first use, into the port's own build directory
+(native_build.py). Callers fall back to the numpy implementations when no
+toolchain is available.
 """
 
 from __future__ import annotations
@@ -17,9 +19,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libkmers.so")
+from ratatosk_tpu_torch.native_build import build_native
+
 _lib = None
 _lib_failed = False
 
@@ -40,14 +41,8 @@ def _load():
     if os.environ.get("RATATOSK_NO_NATIVE"):
         _lib_failed = True
         return None
-    src = os.path.join(_NATIVE_DIR, "kmers.cpp")
     try:
-        if (not os.path.exists(_LIB_PATH)
-                or os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)):
-            subprocess.run(
-                ["sh", os.path.join(_NATIVE_DIR, "build.sh"), "kmers"],
-                check=True, capture_output=True)
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(build_native("kmers"))
         lib.rt_canonical.restype = None
         lib.rt_canonical.argtypes = [
             _U8P, ctypes.c_int64, ctypes.c_int32,

@@ -331,18 +331,26 @@ def correct_file(corrector: Corrector, opt: CorrectOpt, in_paths: List[str],
         # thread drives the device for batch N — numpy planning and the
         # device waits both release the GIL
         from concurrent.futures import ThreadPoolExecutor
+
+        def planned(fut):
+            # timers["wait"]: how long this thread waits for the planner
+            t0 = time.time()
+            out = fut.result()
+            corrector.timers["wait"] += time.time() - t0
+            return out
+
         with ThreadPoolExecutor(max_workers=1) as pool:
             fut = None
             for batch in batches():
                 nxt = pool.submit(plan, batch)
                 if fut is not None:
-                    names, quals, (reads_np, plans, regions) = fut.result()
+                    names, quals, (reads_np, plans, regions) = planned(fut)
                     corrector._execute_regions(regions)
                     emit(names, corrector.assemble_batch(reads_np, quals,
                                                          plans, regions))
                 fut = nxt
             if fut is not None:
-                names, quals, (reads_np, plans, regions) = fut.result()
+                names, quals, (reads_np, plans, regions) = planned(fut)
                 corrector._execute_regions(regions)
                 emit(names, corrector.assemble_batch(reads_np, quals,
                                                      plans, regions))
