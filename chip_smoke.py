@@ -61,9 +61,15 @@ Phases, one line each (any failure raises, and the script exits non-zero):
   6. [devplan] the device planner on the card, on the slice's k=31 graph
      (first read batch of raw long reads) and k=63 graph (first batch of
      pass-1 reads): its runs and 1-edit seeds must equal the host planner's,
-     timed per batch against it; then pass 1 on the 16 reads of phase 5 with
-     plan_on_device=True must write the same FASTQ bytes. Fails if every
-     batch fell back to the host;
+     timed per batch against it; on the same batch the runs and probe
+     kernels (csrc/plan.cu) must equal their plain versions tensor for
+     tensor (`of` and stats included), each timed with CUDA events beside
+     its plain version and its bound (the random 32-byte sectors that the
+     batch needs, counted from its inputs and checked against the plain
+     version's stats, over 3.35 TB/s); then pass 1 on the 16
+     reads of phase 5 with plan_on_device=True must write the same FASTQ
+     bytes and launch both planner kernels. Fails if every batch fell back
+     to the host;
   7. [cli] the user's command on the slice's data (short reads written as
      FASTA): `python -m ratatosk_tpu_torch.cli correct -s -l -o -c 2
      --devices 1 -v` with the defaults (k 31/63, SNP detection and pass-1
@@ -138,9 +144,12 @@ def _cmd(args) -> str:
 
 # the kernels' wrappers, by the name of the JSON record; the main path of
 # every phase runs the first two (impl="auto"), the sprint kernel runs on
-# the "steps" route ([plain])
-KERNELS = ("fused_beam_search", "finish_bundle_kernel", "sprint_rows")
+# the "steps" route ([plain]), the device planner's two on [devplan]'s
+# plan_on_device path too
+KERNELS = ("fused_beam_search", "finish_bundle_kernel", "sprint_rows",
+           "runs_kernel", "probe_kernel")
 PATH_KERNELS = KERNELS[:2]
+PLAN_KERNELS = KERNELS[3:]
 # H100 SXM rates for the bounds (HBM3 peak bandwidth; int32: 132 SMs
 # x 64 INT32 lanes x 1.98 GHz: one int op per lane per clock)
 HBM_BYTES_PER_S = 3.35e12
@@ -148,10 +157,13 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def _wrappers():
-    from ratatosk_tpu_torch.ops import beam_kernel, finish_kernel, sprint
+    from ratatosk_tpu_torch.ops import (beam_kernel, finish_kernel,
+                                        plan_kernel, sprint)
     return {"fused_beam_search": beam_kernel.fused_beam_search,
             "finish_bundle_kernel": finish_kernel.finish_bundle_kernel,
-            "sprint_rows": sprint.sprint_rows}
+            "sprint_rows": sprint.sprint_rows,
+            "runs_kernel": plan_kernel.runs_kernel,
+            "probe_kernel": plan_kernel.probe_kernel}
 
 
 def _reset_launches():
@@ -941,11 +953,196 @@ def _run_keys(lists):
              for r in runs] for runs in lists]
 
 
+# the planner kernels' bounds count what a batch needs, each random read
+# one 32-byte sector: a probed key's directory pair (one sector) and the
+# sectors that its bucket's key rows span up to its match or the bucket's
+# end, a hit's rowflag entry (and for the runs its upa entry), a
+# reverse-direction run's nk entry, a tested h-window's or 1-edit
+# variant's bitmap word; packing, hashing and comparing a window or a
+# variant is ~64 int32 operations
+SECTOR = 32
+OPS_PER_KEY = 64
+
+
+def _key_sectors(torch, hx, lo, hi):
+    """(sectors, hit mask) of probing each key (int64-held words lo, hi):
+    its directory pair, the sectors that its bucket's key rows span from
+    the bucket's start through its match (else to the bucket's end, at most
+    dmax rows), and its rowflag entry on a hit."""
+    from ratatosk_tpu_torch.ops import hash_index as HX
+    hi = hi if hx.two_word else None
+    b = HX.hash_key64(lo, hi) >> (32 - hx.bits)
+    d0 = hx.dir0[b]
+    nb = 1 << hx.bits
+    end = torch.where(b + 1 < nb, hx.dir0[torch.clamp(b + 1, max=nb - 1)],
+                      2 * hx.n)
+    slot = HX.probe_slots_raw(hx, lo, hi)
+    hit = slot >= 0
+    stop = torch.where(hit, slot + 1, torch.minimum(end, d0 + hx.dmax))
+    row = 4 * hx.key_tbl.shape[1]
+    spans = torch.where(stop > d0, (stop * row - 1) // SECTOR
+                        - d0 * row // SECTOR + 1, 0)
+    return lo.numel() + int(spans.sum()) + int(hit.sum()), hit
+
+
+def runs_need(torch, dp, codes, want, rcap: int):
+    """(bytes, int32 operations, counts) that the runs of a batch need:
+    each valid k-window probed, a hit's upa entry, a reverse-direction
+    run's nk entry (of the runs the outputs hold), the codes read once and
+    the outputs written once."""
+    from ratatosk_tpu_torch.ops import plan_device as PD
+    whi, wlo, valid = PD._pack_windows(codes, dp.k)
+    sectors, hit = _key_sectors(torch, dp.hx, wlo[valid], whi[valid])
+    n = min(int(want[-1]), rcap)
+    sectors += int(hit.sum()) + int((want[3][:n] == 1).sum())
+    windows = int(valid.sum())
+    nbytes = SECTOR * sectors + len(codes) + 8 * (5 * rcap + 1)
+    return nbytes, OPS_PER_KEY * windows, dict(windows=windows,
+                                               sectors=sectors)
+
+
+def probe_need(torch, dp, codes, sstart, opts, want):
+    """(bytes, int32 operations, counts) that the 1-edit probe of a batch
+    needs: each valid k-window probed; the h-window bitmap word of each
+    allowed position and of its kinds' suffixes; one prefilter word per
+    enumerated variant (the first qcap qualifying positions of each
+    (kind, side), SUB's 3 other bases, DEL's 1, INS's 4 per edit position);
+    each survivor probed; the codes (and sstart at a stride) read once and
+    the outputs written once. Its allowed positions, most qualifying
+    positions and survivors must be the plain version's stats[0:3]."""
+    from ratatosk_tpu_torch.ops import hash_index as HX
+    from ratatosk_tpu_torch.ops import plan_device as PD
+    k, L, dev, two = dp.k, len(codes), codes.device, dp.hx.two_word
+    h = (k - 1) // 2
+    pos = torch.arange(L, device=dev)
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros(L - len(x))])
+
+    whi, wlo, valid = PD._pack_windows(codes, k)
+    sectors, hit = _key_sectors(torch, dp.hx, wlo[valid], whi[valid])
+    windows = int(valid.sum())
+    ex = pad(valid)
+    ex[:len(valid)][valid] = hit
+    nes = opts["nes"]
+    skip = torch.zeros(L, dtype=torch.bool, device=dev)
+    if nes > 0:
+        cs = torch.cat([pos.new_zeros(1), torch.cumsum(ex, 0)])
+        skip = (cs[torch.clamp(pos + nes + 1, max=L)]
+                - cs[torch.clamp(pos - nes, min=0)]) > 0
+    allowed = ~skip & ((pos - sstart) % opts["stride"] == 0)
+    _, hlo, hvalid = PD._pack_windows(codes, h)
+    half = pad(hvalid & HX.prefilter_test(dp.hf_tbl, dp.hf_bits,
+                                          HX.hash_key64(hlo)))
+    need_h = torch.zeros(L, dtype=torch.bool, device=dev)
+    nqs, variants, found = [], 0, []
+    kinds = [(PD._SUB, k, 0)] if opts["subs"] else []
+    kinds += [(PD._DEL, k + 1, 1), (PD._INS, k - 1, 1)] \
+        if opts["indels"] else []
+    for kind, m, p0 in kinds:
+        wh, wl, wv = PD._pack_windows(codes, m)
+        ok = allowed & pad(wv)
+        sfx = torch.clamp(pos + m - h, max=L - 1)
+        need_h |= ok
+        need_h[sfx[ok]] = True
+        suf_max = (k - h) if kind == PD._DEL else (k - 1 - h)
+        for flag, ps in ((half, range(max(p0, h), k)),
+                         (half[sfx], range(p0, suf_max + 1))):
+            q = (ok & flag).nonzero()[:, 0]
+            nqs.append(len(q))
+            q = q[:opts["qcap"]]
+            for p in ps:
+                for vh, vl, keep in PD._variant_key(kind, k, wh[q], wl[q], p):
+                    if keep is not None:
+                        vh, vl = vh[keep], vl[keep]
+                    variants += len(vl)
+                    pf = HX.prefilter_test(dp.pf_tbl, dp.pf_bits,
+                                           HX.hash_key64(vl, vh if two
+                                                         else None))
+                    found.append((vl[pf], vh[pf]))
+    slo, shi = (torch.cat(x) for x in zip(*found))
+    survivors = len(slo)
+    _, tcap = PD.probe_caps(opts["qcap"])
+    counted = [int(allowed.sum()), max(nqs), min(survivors, tcap)]
+    if counted != want[6][:3].tolist():
+        raise AssertionError(f"[devplan] the bound's counts {counted} are "
+                             f"not the plain version's stats "
+                             f"{want[6].tolist()}")
+    h_tests = int((need_h & pad(hvalid)).sum())
+    sectors += h_tests + variants + _key_sectors(torch, dp.hx, slo, shi)[0]
+    nbytes = (SECTOR * sectors + L + (8 * L if opts["stride"] > 1 else 0)
+              + 8 * (4 * opts["hcap"] + 5) + 1)
+    return nbytes, OPS_PER_KEY * (windows + h_tests + variants), dict(
+        survivors=survivors, allowed=counted[0], variants=variants,
+        sectors=sectors, windows=windows, h_tests=h_tests)
+
+
+def plan_kernel_rows(torch, dp, reads, spans, *, stride: int, nes: int,
+                     reps: int = 5) -> dict:
+    """The runs and probe kernels against their plain versions on one read
+    batch, on the card: every output tensor equal (on a batch whose caps
+    overflow, `of` and stats[0:3], as the host then plans it), each timed
+    with CUDA events behind a device sleep, the plain versions over 3
+    calls, with the bound counted from what the batch needs."""
+    from ratatosk_tpu_torch.ops import plan_device as PD
+    from ratatosk_tpu_torch.ops import plan_kernel as PK
+    dev = dp.device
+    rcodes, _, rcap = dp.runs_inputs(reads)
+    rcodes = torch.from_numpy(rcodes).to(dev)
+    codes, sstart, _ = dp.probe_inputs(reads, spans)
+    codes, sstart = (torch.from_numpy(x).to(dev) for x in (codes, sstart))
+    opts = dp.probe_options(len(codes), stride=stride, near_exact_skip=nes)
+    calls = {
+        "runs_kernel": (
+            lambda: PK.runs_kernel(rcodes, dp.hx, dp.nk_dev, k=dp.k,
+                                   rcap=rcap),
+            lambda: PD._runs_kernel(rcodes, dp.hx, dp.nk_dev, k=dp.k,
+                                    rcap=rcap)),
+        "probe_kernel": (
+            lambda: PK.probe_kernel(codes, sstart, dp.hx, dp.pf_tbl,
+                                    dp.hf_tbl, **opts),
+            lambda: PD._probe_kernel(codes, sstart, dp.hx, dp.pf_tbl,
+                                     dp.hf_tbl, **opts))}
+    rows = {}
+    for name, (kern, plain) in calls.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if name == "probe_kernel" and bool(want[5]):
+            pairs = [(got[5], want[5]), (got[6][:3], want[6][:3])]
+        else:
+            pairs = list(zip(got, want))
+        err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                  for g, w in pairs)
+        if not all(g.dtype == w.dtype and torch.equal(g, w)
+                   for g, w in pairs):
+            raise AssertionError(f"[devplan] {name} differs from its plain "
+                                 f"version at k={dp.k}: max abs err {err}")
+        ms = _call_ms(torch, kern, reps=reps)
+        plain_ms = _call_ms(torch, plain, reps=3)
+        L = len(rcodes) if name == "runs_kernel" else len(codes)
+        if name == "runs_kernel":
+            nbytes, ops, extra = runs_need(torch, dp, rcodes, want, rcap)
+            extra.update(n=int(want[-1]), rcap=rcap)
+        else:
+            nbytes, ops, extra = probe_need(torch, dp, codes, sstart, opts,
+                                            want)
+            extra.update(of=bool(want[5]), stats=want[6].tolist())
+        bound, by = _bound_ms(nbytes, ops)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=by, L=L, **extra)
+        log(f"[devplan] {name} k={dp.k} L={L}: equal to its plain version; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{bound:.4f} ms ({by}); {extra}")
+    return rows
+
+
 def phase_devplan(device, sl: dict, workdir: str, head: str,
                   host_fastq: bytes):
     """The device planner against the host planner on the card: runs and
-    seeds of one read batch per graph, ms per batch, then a pass-1 run with
-    plan_on_device=True. Returns the kernels' launches in that run."""
+    seeds of one read batch per graph, ms per batch, the planner kernels
+    against their plain versions on that batch, then a pass-1 run with
+    plan_on_device=True. Returns (the kernels' launches in that run, the
+    planner kernels' rows by graph)."""
     import dataclasses
     import torch
     from ratatosk_tpu_torch.correct.engine import _NEAR_EXACT_SKIP, Corrector
@@ -956,6 +1153,7 @@ def phase_devplan(device, sl: dict, workdir: str, head: str,
     o1 = sl["o1"]
     stride, nes = o1.weak_seed_stride, _NEAR_EXACT_SKIP
     batches = fallbacks = 0
+    rows = {n: {} for n in PLAN_KERNELS}
     for name, corr, path in (("k31", sl["corr1"], sl["lr_path"]),
                              ("k63", sl["corr2"], sl["p1_path"])):
         cdbg = corr.cdbg
@@ -1004,6 +1202,9 @@ def phase_devplan(device, sl: dict, workdir: str, head: str,
             f"{', '.join(f'{x:.1f}' for x in ms['host'])}, device planner "
             f"{', '.join(f'{x:.1f}' for x in ms['device'])}; "
             f"n_fallback {n_fb}; probe stats {dp.last_stats.tolist()}")
+        for kname, row in plan_kernel_rows(torch, dp, reads, spans,
+                                           stride=stride, nes=nes).items():
+            rows[kname][name] = row
 
     o1d = dataclasses.replace(o1, plan_on_device=True)
     corr = Corrector(sl["corr1"].cdbg, sl["corr1"].colors, o1d, device=device)
@@ -1014,7 +1215,7 @@ def phase_devplan(device, sl: dict, workdir: str, head: str,
     t = time.time()
     correct_file(corr, o1d, [head], str(out), 1)
     torch.cuda.synchronize()
-    launches = _launches()
+    launches = _launches(PATH_KERNELS + PLAN_KERNELS)
     dt = time.time() - t
     batches += 1
     fallbacks += corr.devplan.n_fallback
@@ -1027,9 +1228,10 @@ def phase_devplan(device, sl: dict, workdir: str, head: str,
         f"byte-identical to the host planner ({len(host_fastq)} bytes) in "
         f"{dt:.1f}s, plan {corr.timers['plan']:.2f}s, n_fallback "
         f"{corr.devplan.n_fallback}, {launches} kernel launches; "
-        f"{fallbacks} of {batches} planner batches fell back")
+        f"{fallbacks} of {batches} planner batches fell back; planner split "
+        f"(s) {({n: round(v, 4) for n, v in corr.devplan.timers.items()})}")
     _require_launches("devplan", launches)
-    return launches
+    return launches, rows
 
 
 def make_slots(torch):
@@ -1554,7 +1756,9 @@ def main(argv=None) -> int:
             head, host_fastq, steps = phase_plain_vs_kernel(dev, sl, workdir)
             add("plain_steps", {"sprint_rows": steps})
             phase_trace(sl, workdir)
-            add("devplan", phase_devplan(dev, sl, workdir, head, host_fastq))
+            dp_launches, prows = phase_devplan(dev, sl, workdir, head,
+                                               host_fastq)
+            add("devplan", dp_launches)
         mesh, how = make_slots(torch)
         add("mesh", phase_mesh(sl, workdir, mesh, how))
         add("sharded", phase_sharded(sl, workdir, mesh))
@@ -1591,7 +1795,13 @@ def main(argv=None) -> int:
                frows["finish_bundle_kernel"], 256),
         record("sprint_rows", "ratatosk_tpu_torch/csrc/sprint.cu",
                "ratatosk_tpu/ops/sprint_pallas.py:58", krows, 257),
-    ]}), flush=True)
+    ] + ([] if args.mesh_only else [
+        # the device planner's dispatches (plain JAX in the reference, no
+        # Pallas kernel); headline: the k=31 graph's first read batch
+        record(name, "ratatosk_tpu_torch/csrc/plan.cu",
+               f"ratatosk_tpu/ops/plan_device.py:{line}", prows[name], "k31")
+        for name, line in (("runs_kernel", 91), ("probe_kernel", 197))])}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

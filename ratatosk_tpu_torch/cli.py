@@ -7,14 +7,12 @@ pass selection -1/-2, same artifacts (`<out>.2.fastq` intermediate,
 that `--devices` names; several hosts run it through
 `python -m ratatosk_tpu_torch.distributed_correct`.
 
-Two deliberate differences from the JAX package's CLI:
-- no `-d/--in-unitig-data`: the `.npz` index given with `-g` already holds
-  the unitig data, and the JAX CLI reads the flag nowhere but a check;
-- `--batch-regions` defaults to CorrectOpt's 512, not 64. Padding rows of
-  a launch are inert; the batch size reaches the output only through the
-  launch-wide step count (a launch's longest region runs one step fewer
-  than its others), which can reorder tied entries of a region without a
-  completed path. No such case is known (tests/test_torch_cli.py).
+One deliberate difference from the JAX package's CLI: `--batch-regions`
+defaults to CorrectOpt's 512, not 64. Padding rows of a launch are inert;
+the batch size reaches the output only through the launch-wide step count
+(a launch's longest region runs one step fewer than its others), which can
+reorder tied entries of a region without a completed path. No such case is
+known (tests/test_torch_cli.py).
 """
 
 from __future__ import annotations
@@ -56,6 +54,9 @@ def _add_common(p: argparse.ArgumentParser, correct_mode: bool) -> None:
     p.add_argument("-I", "--no-graph-index", action="store_true")
     if correct_mode:
         p.add_argument("-t", "--trim-split", type=int, default=0)
+        # the .npz index given with -g already holds the unitig data: -d is
+        # read only by CorrectOpt.validate (-d without -g is an error)
+        p.add_argument("-d", "--in-unitig-data", default=None)
         p.add_argument("-G", "--gzip-out", action="store_true")
         p.add_argument("-O", "--force-io-order", action="store_true",
                        help="keep output in input order (always satisfied: "
@@ -99,6 +100,7 @@ def _build_opt(args, index_mode: bool) -> CorrectOpt:
         filename_helper_long_in=list(args.in_accurate_long),
         prefix_filename_out=args.out_long,
         filename_graph_in=args.in_graph,
+        filename_data_in=getattr(args, "in_unitig_data", None),
         max_qual=args.max_base_qual,
         trim_qual=getattr(args, "trim_split", 0),
         insert_sz=args.insert_sz,

@@ -309,7 +309,8 @@ class Corrector:
         self.devplan = None
         if self.sharded is None and self.opt.plan_on_device:
             from ratatosk_tpu_torch.ops.plan_device import DevicePlanner
-            self.devplan = DevicePlanner.build(cdbg, self.device)
+            self.devplan = DevicePlanner.build(cdbg, self.device,
+                                               impl=impl)
         self.nk = cdbg.nkmers
         self.branching = branching_mask(colors.edge_support)
         # repeat-coverage exclusion threshold (getMaxKmerCoverage,

@@ -47,6 +47,10 @@ SIGNATURES = {
     # min_score_open, device, stream
     "finish_bundle_launch": (_I, [_P, _I, _P, _I, ctypes.c_float, _I, _P]),
     "finish_bundle_max_width": (_I, []),
+    # csrc/plan.cu: pointer table, its length, int table, its length,
+    # device, stream
+    "plan_runs_launch": (_I, [_P, _I, _P, _I, _I, _P]),
+    "plan_probe_launch": (_I, [_P, _I, _P, _I, _I, _P]),
 }
 
 _lib: Optional[ctypes.CDLL] = None

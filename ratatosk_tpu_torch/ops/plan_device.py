@@ -1,9 +1,12 @@
 """Device-side batch planning: exact-anchor runs + 1-edit seed probe.
 
-Port of ratatosk_tpu/ops/plan_device.py (plain JAX there, plain torch here,
-on the corrector's device). Both host-planner costs are index lookups, and
-this module runs them as TWO device dispatches per read batch against the
-two-orientation hash-directory index (ops/hash_index.py):
+Port of ratatosk_tpu/ops/plan_device.py (plain JAX there). Here
+`_runs_kernel` and `_probe_kernel` are the plain torch versions; on a CUDA
+device the planner launches their hand-written kernels instead
+(ops/plan_kernel.py, csrc/plan.cu), unless its impl is "torch". Both
+host-planner costs are index lookups, and this module runs them as TWO
+device dispatches per read batch against the two-orientation
+hash-directory index (ops/hash_index.py):
 
 - `runs`: every k-window of the concatenated read batch is packed,
   hash-probed in READ orientation (the doubled table answers orientation),
@@ -39,6 +42,7 @@ host and counted in `n_fallback`.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -49,6 +53,12 @@ from ratatosk_tpu_torch.ops import u128 as U
 
 _SUB, _DEL, _INS = 0, 1, 2     # rsp codes packed into the placement identity
 _BIG = 0x7FFFFFFF
+# DevicePlanner.timers, for runs and probe alike: `dispatch` the host's
+# concat, upload and enqueue; `wait` the host blocked in collect_* until the
+# results are downloaded; `build` making the anchor and seed objects;
+# `device` the dispatched work's device seconds (CUDA events; 0 on the CPU)
+TIMERS = tuple(f"{d}_{part}" for d in ("runs", "probe")
+               for part in ("dispatch", "wait", "build", "device"))
 
 
 def _pad_tier(n: int, lo: int = 1 << 16) -> int:
@@ -173,6 +183,12 @@ def _scan_side(kind: int, k: int, whi, wlo, qv, pf_tbl, pf_bits, qpos,
         buf["cnt"] = torch.clamp(cnt + c, max=tcap)
 
 
+def probe_caps(qcap: int):
+    """(scap, tcap): survivors of one (kind, side, p) step and in all, the
+    reference's functions of qcap."""
+    return max(qcap // 8, 1 << 12), qcap * 4
+
+
 def _probe_kernel(codes, sstart, hx: HX.HashKmerIndex, pf_tbl, hf_tbl, *,
                   k: int, stride: int, nes: int, subs: bool, indels: bool,
                   pf_bits: int, hf_bits: int, qcap: int, hcap: int):
@@ -229,8 +245,7 @@ def _probe_kernel(codes, sstart, hx: HX.HashKmerIndex, pf_tbl, hf_tbl, *,
     # caps: the half filter qualifies ~10-25% of allowed positions on noisy
     # spans; prefilter survivors are ~1-3% of enumerated variants. Overflow
     # of any cap -> host fallback (reported via `of`).
-    tcap = qcap * 4
-    scap = max(qcap // 8, 1 << 12)
+    scap, tcap = probe_caps(qcap)
     zero = posL.new_zeros(())
     buf = {"w": torch.zeros((tcap + 1, W), dtype=torch.int64, device=dev),
            "meta": torch.zeros(tcap + 1, dtype=torch.int64, device=dev),
@@ -308,6 +323,10 @@ class DevicePlanner:
     upos: np.ndarray
     strand: np.ndarray
     nk: np.ndarray
+    # the Corrector's route (correct.beam.IMPLS): "torch" runs the plain
+    # versions; else a CUDA device launches the kernels of csrc/plan.cu
+    # (ops/plan_kernel.py; a CPU tensor takes the plain versions there)
+    impl: str = "auto"
     n_fallback: int = 0
     # high-water-mark pad tier: every dispatch pads its concat up to the
     # largest tier seen so far (warmup() pre-sets it to the full-batch
@@ -316,6 +335,10 @@ class DevicePlanner:
     min_tier: int = 0
     # last probe stats [n_allowed, max n_qual, survivors, n_seeds]
     last_stats: Optional[np.ndarray] = None
+    # seconds by part of the planner's batches (TIMERS); the rest of
+    # Corrector.plan_batch is its "plan" timer less these host parts
+    timers: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(TIMERS, 0.0))
 
     @staticmethod
     def _qcap(L: int) -> int:
@@ -324,7 +347,7 @@ class DevicePlanner:
         return min(L // 12 + 4096, L)
 
     @staticmethod
-    def build(cdbg, device) -> Optional["DevicePlanner"]:
+    def build(cdbg, device, impl: str = "auto") -> Optional["DevicePlanner"]:
         # the packed placement identity ((row*3+kind)<<1)|fw and the
         # rowflag word (row<<1)|fw are int32: past ~3.5e8 keys they
         # overflow while the host planner (int64 rows) stays correct —
@@ -344,39 +367,80 @@ class DevicePlanner:
             uid=np.asarray(cdbg.index.unitig_id),
             upos=np.asarray(cdbg.index.pos),
             strand=np.asarray(cdbg.index.strand),
-            nk=np.asarray(cdbg.nkmers))
+            nk=np.asarray(cdbg.nkmers), impl=impl)
+
+    def _kernels(self):
+        """(runs, probe): the plain versions, or their kernels' wrappers."""
+        if self.impl == "torch":
+            return _runs_kernel, _probe_kernel
+        from ratatosk_tpu_torch.ops import plan_kernel as PK
+        return PK.runs_kernel, PK.probe_kernel
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
+
+    # ---- timers ----
+
+    def _add(self, name: str, t0: float) -> float:
+        t = time.time()
+        self.timers[name] += t - t0
+        return t
+
+    def _event(self):
+        """A CUDA event recorded on the current stream (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _dispatched(self, what: str, t0: float, start):
+        """Close a dispatch: add its host seconds; returns the (start, end)
+        events around its device work (None on the CPU) for its handle."""
+        evs = None
+        if start is not None:
+            evs = (start, self._event())
+        self._add(f"{what}_dispatch", t0)
+        return evs
+
+    def _waited(self, what: str, evs) -> float:
+        """Start of a collect: block until the dispatch's device work is
+        done (counted in the wait), then add its device seconds."""
+        t0 = time.time()
+        if evs is not None:
+            evs[1].synchronize()
+            self.timers[f"{what}_device"] += evs[0].elapsed_time(evs[1]) / 1e3
+        return t0
 
     # ---- warmup ----
 
     def warmup(self, batch_bp: int, *, stride: int, near_exact_skip: int,
                subs: bool = True, indels: bool = True) -> None:
-        """Run both kernels once at the production batch tier and pin the
-        tier as the pad floor. batch_bp: the pipeline's read-batch size in
-        bases; the tier holds batch_bp plus separator/overshoot slack."""
+        """Run both dispatches once at the production batch tier (the
+        kernels build and load here) and pin the tier as the pad floor.
+        batch_bp: the pipeline's read-batch size in bases; the tier holds
+        batch_bp plus separator/overshoot slack."""
         k = self.k
         L = _pad_tier(max(int(batch_bp * 1.25), k + 2))
         self.min_tier = max(self.min_tier, L)
         codes = self._upload(np.full(L, 4, np.uint8))
-        r = _runs_kernel(codes, self.hx, self.nk_dev, k=k,
-                         rcap=max(L // 24, 1 << 12))
-        p = _probe_kernel(
-            codes, torch.zeros_like(codes, dtype=torch.int64), self.hx,
-            self.pf_tbl, self.hf_tbl, k=k, stride=stride,
-            nes=near_exact_skip, subs=subs, indels=indels and k <= 63,
-            pf_bits=self.pf_bits, hf_bits=self.hf_bits, qcap=self._qcap(L),
-            hcap=max(L // 8, 1 << 12))
+        runs, probe = self._kernels()
+        r = runs(codes, self.hx, self.nk_dev, k=k, rcap=max(L // 24, 1 << 12))
+        p = probe(codes, torch.zeros_like(codes, dtype=torch.int64), self.hx,
+                  self.pf_tbl, self.hf_tbl,
+                  **self.probe_options(L, stride=stride,
+                                       near_exact_skip=near_exact_skip,
+                                       subs=subs, indels=indels))
         del r, p
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     # ---- runs ----
 
-    def dispatch_runs(self, reads: Sequence[np.ndarray]):
-        """Queue find_runs for a whole batch on the device."""
-        k = self.k
+    def runs_inputs(self, reads: Sequence[np.ndarray]):
+        """(codes, offs, rcap) of a batch's runs dispatch: the reads
+        concatenated with separators and padded to the pad tier (which it
+        raises), each read's offset, the runs cap."""
         parts = []
         offs = []
         off = 0
@@ -387,27 +451,37 @@ class DevicePlanner:
             parts.append(sep)
             off += len(r) + 1
         concat = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
-        L = _pad_tier(max(len(concat), k + 1, self.min_tier))
+        L = _pad_tier(max(len(concat), self.k + 1, self.min_tier))
         self.min_tier = max(self.min_tier, L)
         codes = np.full(L, 4, np.uint8)
         codes[:len(concat)] = concat
-        rcap = max(L // 24, 1 << 12)
-        out = _runs_kernel(self._upload(codes), self.hx, self.nk_dev,
-                           k=k, rcap=rcap)
-        return (out, offs, [len(r) for r in reads], rcap)
+        return codes, offs, max(L // 24, 1 << 12)
+
+    def dispatch_runs(self, reads: Sequence[np.ndarray]):
+        """Queue find_runs for a whole batch on the device."""
+        t0 = time.time()
+        codes, offs, rcap = self.runs_inputs(reads)
+        ev = self._event()
+        out = self._kernels()[0](self._upload(codes), self.hx, self.nk_dev,
+                                 k=self.k, rcap=rcap)
+        return (out, offs, [len(r) for r in reads], rcap,
+                self._dispatched("runs", t0, ev))
 
     def collect_runs(self, handle) -> Optional[List[list]]:
         """Blocks; returns per-read SolidRun lists (None = overflow)."""
         from ratatosk_tpu_torch.correct.seeds import SolidRun
-        (sidx, eidx, uid, dirn, o, n), offs, lens, rcap = handle
+        (sidx, eidx, uid, dirn, o, n), offs, lens, rcap, ev = handle
+        t0 = self._waited("runs", ev)
         n = int(n)
         if n > rcap:
+            self._add("runs_wait", t0)
             return None
         sidx = sidx[:n].cpu().numpy()
         eidx = eidx[:n].cpu().numpy()
         uid = uid[:n].cpu().numpy()
         dirn = dirn[:n].cpu().numpy()
         o = o[:n].cpu().numpy()
+        t0 = self._add("runs_wait", t0)
         out: List[list] = [[] for _ in offs]
         offs_arr = np.asarray(offs, np.int64)
         ri = np.searchsorted(offs_arr, sidx, side="right") - 1
@@ -419,15 +493,16 @@ class DevicePlanner:
                              zip(rel_s.tolist(), rel_e.tolist(),
                                  uid.tolist(), dirn.tolist(), o.tolist()))):
             out[r_j].append(run)
+        self._add("runs_build", t0)
         return out
 
     # ---- 1-edit probe ----
 
-    def dispatch_probe(self, reads, spans, *, stride: int,
-                       near_exact_skip: int, subs: bool = True,
-                       indels: bool = True):
-        """spans: list of (read_idx, a, b). Queues the probe on the device."""
-        k = self.k
+    def probe_inputs(self, reads, spans):
+        """(codes, sstart, starts) of a batch's probe dispatch: the spans
+        (read_idx, a, b) concatenated with separators and padded to the pad
+        tier (which it raises), each position's span start, and each span's
+        offset."""
         parts, starts = [], []
         off = 0
         sep = np.full(1, 4, np.uint8)
@@ -438,7 +513,7 @@ class DevicePlanner:
             parts.append(sep)
             off += len(seg) + 1
         concat = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
-        L = _pad_tier(max(len(concat), k + 2, self.min_tier))
+        L = _pad_tier(max(len(concat), self.k + 2, self.min_tier))
         self.min_tier = max(self.min_tier, L)
         codes = np.full(L, 4, np.uint8)
         codes[:len(concat)] = concat
@@ -446,26 +521,44 @@ class DevicePlanner:
         sstart = np.zeros(L, np.int64)
         for i, s0 in enumerate(starts):
             sstart[s0:starts_arr[i + 1]] = s0
-        # caps are pure functions of L
-        qcap = self._qcap(L)
-        hcap = max(L // 8, 1 << 12)
-        out = _probe_kernel(
-            self._upload(codes), self._upload(sstart), self.hx, self.pf_tbl,
-            self.hf_tbl, k=k, stride=stride, nes=near_exact_skip, subs=subs,
-            indels=indels and k <= 63, pf_bits=self.pf_bits,
-            hf_bits=self.hf_bits, qcap=qcap, hcap=hcap)
-        return (out, starts, spans, hcap)
+        return codes, sstart, starts
+
+    def probe_options(self, L: int, *, stride: int, near_exact_skip: int,
+                      subs: bool = True, indels: bool = True) -> dict:
+        """The probe's keyword arguments at pad tier L; the caps are pure
+        functions of L."""
+        return dict(k=self.k, stride=stride, nes=near_exact_skip, subs=subs,
+                    indels=indels and self.k <= 63, pf_bits=self.pf_bits,
+                    hf_bits=self.hf_bits, qcap=self._qcap(L),
+                    hcap=max(L // 8, 1 << 12))
+
+    def dispatch_probe(self, reads, spans, *, stride: int,
+                       near_exact_skip: int, subs: bool = True,
+                       indels: bool = True):
+        """spans: list of (read_idx, a, b). Queues the probe on the device."""
+        t0 = time.time()
+        codes, sstart, starts = self.probe_inputs(reads, spans)
+        kw = self.probe_options(len(codes), stride=stride,
+                                near_exact_skip=near_exact_skip, subs=subs,
+                                indels=indels)
+        ev = self._event()
+        out = self._kernels()[1](self._upload(codes), self._upload(sstart),
+                                 self.hx, self.pf_tbl, self.hf_tbl, **kw)
+        return (out, starts, spans, kw["hcap"],
+                self._dispatched("probe", t0, ev))
 
     def collect_probe(self, handle) -> Optional[List[list]]:
         """Blocks; per-span weak SolidRun lists (None = overflow: the caller
         plans this batch on the host)."""
         from ratatosk_tpu_torch.correct.seeds import SolidRun
-        (sel, ex_row, ex_fw, varid, n, of, stats), starts, spans, hcap = \
-            handle
+        (sel, ex_row, ex_fw, varid, n, of, stats), starts, spans, hcap, ev \
+            = handle
+        t0 = self._waited("probe", ev)
         self.last_stats = stats.cpu().numpy()
         if bool(of) or int(n) > hcap:
             # capacity overflow: this batch falls back to the host probe
             self.n_fallback += 1
+            self._add("probe_wait", t0)
             return None
         k = self.k
         n = int(n)
@@ -473,8 +566,10 @@ class DevicePlanner:
         ex_row = ex_row[:n].cpu().numpy()
         ex_fw = ex_fw[:n].cpu().numpy()
         varid = varid[:n].cpu().numpy()
+        t0 = self._add("probe_wait", t0)
         out: List[list] = [[] for _ in spans]
         if n == 0:
+            self._add("probe_build", t0)
             return out
         starts_arr = np.asarray(starts, np.int64)
         si = np.searchsorted(starts_arr, sel, side="right") - 1
@@ -500,4 +595,5 @@ class DevicePlanner:
             a = span_a[s_i]
             out[s_i].append(SolidRun(s=a + p, e=a + p, uid=u, direction=d,
                                      o_s=oo, weak=True, rspan=rs))
+        self._add("probe_build", t0)
         return out

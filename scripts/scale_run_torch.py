@@ -17,7 +17,10 @@ impl="torch" on the same pass-1 graph, whose FASTQ must equal the kernels'.
 --plan-ab runs each pass again with plan_on_device=True on a fresh
 Corrector over the same graph: its FASTQ must equal the host planner's; its
 seconds, device memory and n_fallback are reported (devplan_built is false
-past the device planner's index-size limit, where the host plans).
+past the device planner's index-size limit, where the host plans), with
+plan_split_s: the planner's batches split into the runs and probe
+dispatches' host and device seconds, the host's wait for them, building
+the anchor and seed objects, and the rest of plan_batch.
 
 Usage:
     python3 scripts/scale_run_torch.py [genome_bp] [n_long_reads] [out.json]
@@ -54,7 +57,8 @@ from ratatosk_tpu_torch.correct.engine import Corrector  # noqa: E402
 from ratatosk_tpu_torch.graph import build as B  # noqa: E402
 from ratatosk_tpu_torch.graph.colors import color_graph  # noqa: E402
 from ratatosk_tpu_torch.io import fastx  # noqa: E402
-from ratatosk_tpu_torch.ops import beam_kernel, finish_kernel  # noqa: E402
+from ratatosk_tpu_torch.ops import (beam_kernel, finish_kernel,  # noqa: E402
+                                    plan_kernel)
 from ratatosk_tpu_torch.ops import cigar as CG  # noqa: E402
 from ratatosk_tpu_torch.pipeline import (_pass_opt, build_pass2_index,  # noqa: E402
                                          correct_file)
@@ -64,9 +68,12 @@ READ_LEN = 4000
 N_TRUTH = 400           # long reads scored against their truth
 N_KERNEL_CHECK = 32     # long reads run through impl="torch" as well
 RAW_ERR = 0.10
-# the kernels of the main path, by the name of their wrapper
+# the kernels of the main path, by the name of their wrapper (the planner's
+# two launch only with plan_on_device)
 KERNELS = {"fused_beam_search": beam_kernel.fused_beam_search,
-           "finish_bundle_kernel": finish_kernel.finish_bundle_kernel}
+           "finish_bundle_kernel": finish_kernel.finish_bundle_kernel,
+           "runs_kernel": plan_kernel.runs_kernel,
+           "probe_kernel": plan_kernel.probe_kernel}
 # git-ignored; scale_run.py's default output is a tracked file
 DEFAULT_OUT = ROOT / "chiprun_out" / "scale_torch.json"
 
@@ -202,6 +209,13 @@ def plan_on_device_pass(cdbg, colors, opt, device, src, out, pass_no,
     rec["devplan_built"] = corr.devplan is not None
     rec["n_fallback"] = (corr.devplan.n_fallback if corr.devplan is not None
                          else None)
+    if corr.devplan is not None:
+        # the planner's batches split by part (DevicePlanner.timers), and
+        # the rest of plan_batch: the plan timer less the host parts
+        split = dict(corr.devplan.timers)
+        split["plan_rest"] = rec["timers_s"]["plan"] - sum(
+            v for name, v in split.items() if not name.endswith("_device"))
+        rec["plan_split_s"] = split
     if Path(out).read_bytes() != Path(host_out).read_bytes():
         raise AssertionError(f"pass {pass_no}: plan_on_device FASTQ differs "
                              "from the host planner's")

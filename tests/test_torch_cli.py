@@ -157,14 +157,37 @@ def test_batch_regions_default_keeps_output(dataset):
     assert outs["default"] == outs["64"]
 
 
+def test_unitig_data_flag_matches_jax(dataset, indexes):
+    """-d without -g is the reference's error in both CLIs (the same
+    ValueError from CorrectOpt.validate, before anything is read); -d with
+    -g writes the JAX CLI's FASTQ bytes (the .npz index holds the unitig
+    data, so -d changes nothing)."""
+    tmp, _, sr, lr = dataset
+    argv = ["correct", "-s", sr, "-l", lr, "-o", str(tmp / "d_only"),
+            "-d", "data"]
+    errors = []
+    for run in (lambda: JC.main(argv), lambda: TC.main(argv, device="cpu")):
+        with pytest.raises(ValueError, match="-d .unitig data. requires -g") \
+                as err:
+            run()
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    assert not os.path.exists(str(tmp / "d_only.fastq"))
+    pj, pt = indexes
+    argv = ["correct", "-l", lr, "-1", "-k", str(K1), "-K", str(K2),
+            "-d", "x"] + SMALL
+    out_j, out_t = str(tmp / "dj"), str(tmp / "dt")
+    assert JC.main(argv + ["-g", TGIO.index_path(pj, K1), "-o", out_j]) == 0
+    assert TC.main(argv + ["-g", TGIO.index_path(pt, K1), "-o", out_t],
+                   device="cpu") == 0
+    assert _read(out_t + ".fastq") == _read(out_j + ".fastq")
+
+
 def test_cli_surface():
-    """--version/--cite; -d is gone; a run asking for more devices than are
-    visible raises before it reads anything."""
+    """--version/--cite; a run asking for more devices than are visible
+    raises before it reads anything."""
     assert TC.main(["--version"]) == 0
     assert TC.main(["--cite"]) == 0
-    with pytest.raises(SystemExit):
-        TC.main(["correct", "-s", "x.fa", "-l", "y.fq", "-o", "z",
-                 "-d", "data"], device="cpu")
     with pytest.raises(RuntimeError, match="--devices 2 requested"):
         TC.main(["correct", "-s", "x.fa", "-l", "y.fq", "-o", "z",
                  "--devices", "2"], device="cpu")

@@ -4,13 +4,16 @@ planner's (correct/seeds.py) and the JAX planner's, its hash probe equals
 the sorted-key lookup, its 128-bit and hash helpers equal a Python-int
 oracle and the JAX helpers over edge values, and a Corrector that plans on
 the device writes what the host planner writes, also when a batch overflows
-its caps and falls back to the host. Cases marked `cuda` run the planner on
-the card; JAX is imported inside the tests that use it, so they also run
-where JAX is not installed:
+its caps and falls back to the host. The probe's overflow flag is pinned to
+the three counts the probe kernel keeps. Cases marked `cuda` run the
+planner and its kernels (csrc/plan.cu) on the card, each kernel tensor for
+tensor against its plain version; JAX is imported inside the tests that use
+it, so they also run where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_plan_device.py
 """
 
 import types
+from dataclasses import replace as dataclasses_replace
 
 import numpy as np
 import pytest
@@ -24,6 +27,8 @@ from ratatosk_tpu_torch.graph.colors import color_graph
 from ratatosk_tpu_torch.graph.keys import KeyArray
 from ratatosk_tpu_torch.ops import hash_index as HX
 from ratatosk_tpu_torch.ops import kmers as K
+from ratatosk_tpu_torch.ops import plan_device as PD
+from ratatosk_tpu_torch.ops import plan_kernel as PK
 from ratatosk_tpu_torch.ops import u128 as U
 from ratatosk_tpu_torch.ops.plan_device import DevicePlanner
 from ratatosk_tpu_torch.testing import noisy_read, random_genome, short_reads
@@ -240,6 +245,140 @@ def test_device_probe_matches_host(k, stride, nes):
     assert dp.last_stats.tolist() == np.asarray(jdp.last_stats).tolist()
 
 
+# ---- the probe's overflow flag and the kernels' routes ----
+
+_BATCHES: dict = {}
+
+
+def _probe_batch(k: int):
+    """A planner and one probe batch at k (the pad tier's floor, 2^16), made
+    once per k: 4 reads of 2 kbp at 6% error (exact k-mers at k=63 too),
+    each probed on [100, 1900)."""
+    if k not in _BATCHES:
+        rng, genome, _, cdbg = _mk(k, glen=30000, seed=3)
+        dp = DevicePlanner.build(cdbg, CPU)
+        reads = [noisy_read(rng, genome,
+                            int(rng.integers(0, len(genome) - 2000)), 2000,
+                            err=0.06)[0] for _ in range(4)]
+        codes, sstart, _ = dp.probe_inputs(reads, [(i, 100, 1900)
+                                                   for i in range(4)])
+        _BATCHES[k] = (dp, reads, torch.from_numpy(codes),
+                       torch.from_numpy(sstart), cdbg)
+    return _BATCHES[k][:4]
+
+
+def _probe_counts(dp, codes, sstart, *, stride, nes, qcap):
+    """What the probe's overflow flag reads, counted with the plain helpers:
+    the qualifying positions of each (kind, side), and the prefilter
+    survivors of each (kind, side, p) step over the first qcap of them (the
+    positions the probe enumerates). Returns (nq list, step counts, total
+    survivors)."""
+    k, L = dp.k, codes.shape[0]
+    h = (k - 1) // 2
+    pos = torch.arange(L)
+    whi, wlo, valid = PD._pack_windows(codes, k)
+    row, _, _ = HX.probe_rowflag(dp.hx, wlo, whi if k > 32 else None, valid)
+    hit = torch.cat([row >= 0, torch.zeros(k - 1, dtype=torch.bool)])
+    skip = torch.zeros(L, dtype=torch.bool)
+    if nes > 0:
+        skip = torch.nn.functional.max_pool1d(
+            hit.float()[None, None], 2 * nes + 1, stride=1,
+            padding=nes)[0, 0] > 0
+    allowed = ~skip & ((pos - sstart) % stride == 0)
+    _, hlo, hvalid = PD._pack_windows(codes, h)
+    half = hvalid & HX.prefilter_test(dp.hf_tbl, dp.hf_bits,
+                                      HX.hash_key64(hlo))
+    half = torch.cat([half, torch.zeros(h - 1, dtype=torch.bool)])
+    nqs, steps, total = [], [], 0
+    for kind, m, p0 in ((PD._SUB, k, 0), (PD._DEL, k + 1, 1),
+                        (PD._INS, k - 1, 1)):
+        wh, wl, wv = PD._pack_windows(codes, m)
+        validm = torch.cat([wv, torch.zeros(m - 1, dtype=torch.bool)])
+        suf_max = (k - h) if kind == PD._DEL else (k - 1 - h)
+        suffix = half[torch.clamp(pos + m - h, max=L - 1)]
+        for flag, ps in ((half, range(max(p0, h), k)),
+                         (suffix, range(p0, suf_max + 1))):
+            q = (allowed & validm & flag).nonzero()[:, 0]
+            nqs.append(len(q))
+            q = q[:qcap]
+            for p in ps:
+                c = 0
+                for vh, vl, keep in PD._variant_key(kind, k, wh[q], wl[q], p):
+                    words = list(HX.split64(vl))
+                    if dp.hx.two_word:
+                        words += list(HX.split64(vh))
+                    ok = HX.prefilter_test(dp.pf_tbl, dp.pf_bits,
+                                           HX.hash_words(*words))
+                    c += int((ok if keep is None else ok & keep).sum())
+                steps.append(c)
+                total += c
+    return nqs, steps, total
+
+
+@pytest.mark.parametrize("k", [31, 63])
+@pytest.mark.parametrize("over", [None, "qcap", "scap", "tcap"])
+def test_probe_overflow_flag_is_its_counts(monkeypatch, k, over):
+    """The probe's `of` is exactly: some (kind, side) has more than qcap
+    qualifying positions, or some (kind, side, p) step more than scap
+    prefilter survivors, or all steps more than tcap (the identity the
+    probe kernel keeps with counters instead of a survivor buffer); each
+    cap exceeded by one in turn, with the seed cap out of reach. stats
+    [1:3] are the most qualifying positions and min(survivors, tcap)."""
+    dp, _, codes, sstart = _probe_batch(k)
+    kw = dict(stride=1, nes=16)
+    nqs, steps, total = _probe_counts(dp, codes, sstart, qcap=len(codes),
+                                      **kw)
+    caps = dict(qcap=max(nqs), scap=max(steps), tcap=total)
+    assert min(caps.values()) > 0
+    if over is not None:
+        caps[over] -= 1
+    monkeypatch.setattr(PD, "probe_caps",
+                        lambda qcap: (caps["scap"], caps["tcap"]))
+    opts = dict(dp.probe_options(len(codes), stride=1, near_exact_skip=16),
+                hcap=len(codes), qcap=caps["qcap"])
+    *_, of, stats = PD._probe_kernel(codes, sstart, dp.hx, dp.pf_tbl,
+                                     dp.hf_tbl, **opts)
+    nq, st, tot = _probe_counts(dp, codes, sstart, qcap=caps["qcap"], **kw)
+    want = (max(nq) > caps["qcap"] or max(st) > caps["scap"]
+            or tot > caps["tcap"])
+    assert bool(of) == want == (over is not None)
+    assert stats[1:3].tolist() == [max(nqs), min(tot, caps["tcap"])]
+
+
+def test_planner_routes_by_impl():
+    """impl "torch" runs the plain versions; any other impl the kernels'
+    wrappers, which take the plain versions on a CPU tensor and launch
+    nothing there."""
+    dp, reads, codes, sstart = _probe_batch(31)
+    torch_dp = dataclasses_replace(dp, impl="torch")
+    assert torch_dp._kernels() == (PD._runs_kernel, PD._probe_kernel)
+    assert dp._kernels() == (PK.runs_kernel, PK.probe_kernel)
+    before = PK.runs_kernel.launches, PK.probe_kernel.launches
+    got = dp.collect_runs(dp.dispatch_runs(reads))
+    assert _keys(got) == _keys(torch_dp.collect_runs(
+        torch_dp.dispatch_runs(reads)))
+    opts = dp.probe_options(len(codes), stride=2, near_exact_skip=16)
+    for g, w in zip(PK.probe_kernel(codes, sstart, dp.hx, dp.pf_tbl,
+                                    dp.hf_tbl, **opts),
+                    PD._probe_kernel(codes, sstart, dp.hx, dp.pf_tbl,
+                                     dp.hf_tbl, **opts)):
+        assert torch.equal(g, w)
+    assert (PK.runs_kernel.launches, PK.probe_kernel.launches) == before
+
+
+def test_plan_wrappers_refuse_other_devices():
+    """A tensor on neither the CPU nor a CUDA device raises (no kernel, no
+    plain fallback)."""
+    dp, _, codes, sstart = _probe_batch(31)
+    meta = codes.to("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        PK.runs_kernel(meta, dp.hx, dp.nk_dev, k=31, rcap=64)
+    with pytest.raises(ValueError, match="no kernel"):
+        PK.probe_kernel(meta, sstart.to("meta"), dp.hx, dp.pf_tbl, dp.hf_tbl,
+                        **dp.probe_options(len(codes), stride=2,
+                                           near_exact_skip=16))
+
+
 def test_build_declines_huge_index():
     """Past ~3.5e8 keys the int32 placement identity would overflow: no
     planner, and the host planner serves the index."""
@@ -341,3 +480,72 @@ def test_corrector_plan_on_device_on_card(cuda_device, toy):
                      device=cuda_device)
     _same(dev.correct_batch(reads), want)
     assert dev.devplan.n_fallback == 0
+
+
+def _equal(got, want):
+    """Tensor for tensor: dtype, shape and values."""
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        assert torch.equal(g, w), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 63])
+@pytest.mark.parametrize("stride,nes", [(1, 16), (2, 0)])
+def test_plan_kernels_match_plain_on_card(cuda_device, k, stride, nes):
+    """csrc/plan.cu's runs and probe kernels against their plain versions on
+    the card, on one batch: every output tensor equal, `of` and stats
+    included (no cap overflows here); the runs also with a cap below their
+    count, where the first rcap entries must still match."""
+    _, reads, codes, sstart = _probe_batch(k)
+    dp = DevicePlanner.build(_BATCHES[k][4], cuda_device)
+    rcodes, _, rcap = dp.runs_inputs(reads)
+    rcodes = torch.from_numpy(rcodes).to(cuda_device)
+    n_runs = None
+    for cap in (rcap, 8):
+        got = PK.runs_kernel(rcodes, dp.hx, dp.nk_dev, k=k, rcap=cap)
+        want = PD._runs_kernel(rcodes, dp.hx, dp.nk_dev, k=k, rcap=cap)
+        _equal(got, want)
+        n_runs = int(want[-1])
+    assert n_runs > 8
+    codes, sstart = codes.to(cuda_device), sstart.to(cuda_device)
+    opts = dp.probe_options(len(codes), stride=stride, near_exact_skip=nes)
+    launches = PK.probe_kernel.launches
+    got = PK.probe_kernel(codes, sstart, dp.hx, dp.pf_tbl, dp.hf_tbl, **opts)
+    assert PK.probe_kernel.launches == launches + 1
+    want = PD._probe_kernel(codes, sstart, dp.hx, dp.pf_tbl, dp.hf_tbl,
+                            **opts)
+    _equal(got, want)
+    assert not bool(want[5]) and int(want[4]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 63])
+@pytest.mark.parametrize("over", ["qcap", "scap", "tcap", "hcap"])
+def test_plan_probe_overflow_on_card(monkeypatch, cuda_device, k, over):
+    """One cap exceeded by one at a time: the probe kernel's `of` and
+    stats[0:3] equal the plain version's (its other outputs need not: the
+    plain version drops survivors there, and the host plans the batch)."""
+    dp_cpu, _, codes, sstart = _probe_batch(k)
+    nqs, steps, total = _probe_counts(dp_cpu, codes, sstart, stride=1,
+                                      nes=16, qcap=len(codes))
+    dp = DevicePlanner.build(_BATCHES[k][4], cuda_device)
+    codes, sstart = codes.to(cuda_device), sstart.to(cuda_device)
+    caps = dict(qcap=max(nqs), scap=max(steps), tcap=total)
+    monkeypatch.setattr(PD, "probe_caps",
+                        lambda qcap: (caps["scap"], caps["tcap"]))
+    opts = dict(dp.probe_options(len(codes), stride=1, near_exact_skip=16),
+                qcap=caps["qcap"], hcap=len(codes))
+    if over == "hcap":
+        n = PD._probe_kernel(codes, sstart, dp.hx, dp.pf_tbl, dp.hf_tbl,
+                             **opts)[4]
+        opts["hcap"] = int(n) - 1
+    else:
+        caps[over] -= 1
+        opts["qcap"] = caps["qcap"]
+    got = PK.probe_kernel(codes, sstart, dp.hx, dp.pf_tbl, dp.hf_tbl, **opts)
+    want = PD._probe_kernel(codes, sstart, dp.hx, dp.pf_tbl, dp.hf_tbl,
+                            **opts)
+    assert bool(got[5]) and bool(want[5])
+    assert torch.equal(got[6][:3], want[6][:3])

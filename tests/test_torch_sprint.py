@@ -106,7 +106,8 @@ def _fake_library(**widths):
         name: entry(caps.get(name)) for name in (
             "sprint_rows_launch", "sprint_rows_max_width",
             "beam_search_launch", "beam_search_max_width",
-            "finish_bundle_launch", "finish_bundle_max_width")})
+            "finish_bundle_launch", "finish_bundle_max_width",
+            "plan_runs_launch", "plan_probe_launch")})
 
 
 def test_library_load_refuses_a_width_cap_its_wrapper_does_not_share(
@@ -130,7 +131,7 @@ def test_library_load_refuses_a_width_cap_its_wrapper_does_not_share(
 def test_library_builds_once_under_concurrent_first_use(monkeypatch):
     """Mesh slots reach their first launch from several threads at once:
     the library is built and loaded once, every thread gets it, and every
-    entry point of the three kernels has its signature set."""
+    entry point of the kernels has its signature set."""
     import threading
     import time
 
@@ -164,7 +165,8 @@ def test_library_builds_once_under_concurrent_first_use(monkeypatch):
         fn = getattr(lib, name)
         assert fn.restype is res and fn.argtypes == args, name
     # pointers and the stream are void pointers, never 32-bit ints
-    for name in ("beam_search_launch", "finish_bundle_launch"):
+    for name in ("beam_search_launch", "finish_bundle_launch",
+                 "plan_runs_launch", "plan_probe_launch"):
         args = cuda_lib.SIGNATURES[name][1]
         assert args[0] is cuda_lib.ctypes.c_void_p
         assert args[2] is cuda_lib.ctypes.c_void_p
