@@ -61,12 +61,14 @@ Phases, one line each (any failure raises, and the script exits non-zero):
   6. [devplan] the device planner on the card, on the slice's k=31 graph
      (first read batch of raw long reads) and k=63 graph (first batch of
      pass-1 reads): its runs and 1-edit seeds must equal the host planner's,
-     timed per batch against it; on the same batch the runs and probe
+     timed per batch against it; on the same batch, and on its first 16
+     reads alone (both padded to the planner's tier), the runs and probe
      kernels (csrc/plan.cu) must equal their plain versions tensor for
      tensor (`of` and stats included), each timed with CUDA events beside
      its plain version and its bound (the random 32-byte sectors that the
      batch needs, counted from its inputs and checked against the plain
-     version's stats, over 3.35 TB/s); then pass 1 on the 16
+     version's stats, over 3.35 TB/s), with the CUDA kernels a call
+     enqueues; then pass 1 on the 16
      reads of phase 5 with plan_on_device=True must write the same FASTQ
      bytes and launch both planner kernels. Fails if every batch fell back
      to the host;
@@ -948,6 +950,25 @@ def _probe_spans(cdbg, colors, runs_raw, reads, min_gap: int):
     return spans
 
 
+def plan_batches(sl: dict, device):
+    """[devplan]'s planner batches: per graph (k31: the raw long reads,
+    k63: the pass-1 reads) the first read batch (~1 Mbp) and a
+    DevicePlanner warmed at the slice's batch size (so that every batch pads
+    to its tier, L = 2^21). Yields (graph, Corrector, planner, reads,
+    seconds of the planner's build and warm-up)."""
+    from ratatosk_tpu_torch.correct.engine import _NEAR_EXACT_SKIP
+    from ratatosk_tpu_torch.ops.plan_device import DevicePlanner
+    o1 = sl["o1"]
+    for name, corr, path in (("k31", sl["corr1"], sl["lr_path"]),
+                             ("k63", sl["corr2"], sl["p1_path"])):
+        reads = _first_batch(path, o1.read_batch_bp)
+        t = time.time()
+        dp = DevicePlanner.build(corr.cdbg, device)
+        dp.warmup(o1.read_batch_bp, stride=o1.weak_seed_stride,
+                  near_exact_skip=_NEAR_EXACT_SKIP)
+        yield name, corr, dp, reads, time.time() - t
+
+
 def _run_keys(lists):
     return [[(r.s, r.e, r.uid, r.direction, r.o_s, r.weak, r.rspan)
              for r in runs] for runs in lists]
@@ -1001,18 +1022,20 @@ def runs_need(torch, dp, codes, want, rcap: int):
                                                sectors=sectors)
 
 
-def probe_need(torch, dp, codes, sstart, opts, want):
+def probe_need(torch, dp, codes, starts, opts, want):
     """(bytes, int32 operations, counts) that the 1-edit probe of a batch
     needs: each valid k-window probed; the h-window bitmap word of each
     allowed position and of its kinds' suffixes; one prefilter word per
     enumerated variant (the first qcap qualifying positions of each
     (kind, side), SUB's 3 other bases, DEL's 1, INS's 4 per edit position);
-    each survivor probed; the codes (and sstart at a stride) read once and
-    the outputs written once. Its allowed positions, most qualifying
-    positions and survivors must be the plain version's stats[0:3]."""
+    each survivor probed; the codes (and the span starts at a stride) read
+    once and the outputs written once. Its allowed positions, most
+    qualifying positions and survivors must be the plain version's
+    stats[0:3]."""
     from ratatosk_tpu_torch.ops import hash_index as HX
     from ratatosk_tpu_torch.ops import plan_device as PD
     k, L, dev, two = dp.k, len(codes), codes.device, dp.hx.two_word
+    sstart = PD.span_sstart(starts, L)
     h = (k - 1) // 2
     pos = torch.arange(L, device=dev)
 
@@ -1070,27 +1093,39 @@ def probe_need(torch, dp, codes, sstart, opts, want):
                              f"{want[6].tolist()}")
     h_tests = int((need_h & pad(hvalid)).sum())
     sectors += h_tests + variants + _key_sectors(torch, dp.hx, slo, shi)[0]
-    nbytes = (SECTOR * sectors + L + (8 * L if opts["stride"] > 1 else 0)
+    nbytes = (SECTOR * sectors + L
+              + (8 * len(starts) if opts["stride"] > 1 else 0)
               + 8 * (4 * opts["hcap"] + 5) + 1)
     return nbytes, OPS_PER_KEY * (windows + h_tests + variants), dict(
         survivors=survivors, allowed=counted[0], variants=variants,
         sectors=sectors, windows=windows, h_tests=h_tests)
 
 
+def _kernels_per_call(fn) -> int:
+    """CUDA kernels that one call of a planner kernel's wrapper enqueues,
+    as its launcher counts them (plan_kernels_enqueued: int, no argument,
+    ctypes' default signature)."""
+    from ratatosk_tpu_torch.ops import cuda_lib
+    fn()
+    return cuda_lib.library().plan_kernels_enqueued()
+
+
 def plan_kernel_rows(torch, dp, reads, spans, *, stride: int, nes: int,
-                     reps: int = 5) -> dict:
+                     tag: str, reps: int = 5) -> dict:
     """The runs and probe kernels against their plain versions on one read
     batch, on the card: every output tensor equal (on a batch whose caps
     overflow, `of` and stats[0:3], as the host then plans it), each timed
     with CUDA events behind a device sleep, the plain versions over 3
-    calls, with the bound counted from what the batch needs."""
+    calls, with the bound counted from what the batch needs and the CUDA
+    kernels a call runs."""
     from ratatosk_tpu_torch.ops import plan_device as PD
     from ratatosk_tpu_torch.ops import plan_kernel as PK
     dev = dp.device
     rcodes, _, rcap = dp.runs_inputs(reads)
     rcodes = torch.from_numpy(rcodes).to(dev)
-    codes, sstart, _ = dp.probe_inputs(reads, spans)
-    codes, sstart = (torch.from_numpy(x).to(dev) for x in (codes, sstart))
+    codes, starts = dp.probe_inputs(reads, spans)
+    codes, starts = (torch.from_numpy(x).to(dev) for x in (codes, starts))
+    sstart = PD.span_sstart(starts, len(codes))
     opts = dp.probe_options(len(codes), stride=stride, near_exact_skip=nes)
     calls = {
         "runs_kernel": (
@@ -1099,7 +1134,7 @@ def plan_kernel_rows(torch, dp, reads, spans, *, stride: int, nes: int,
             lambda: PD._runs_kernel(rcodes, dp.hx, dp.nk_dev, k=dp.k,
                                     rcap=rcap)),
         "probe_kernel": (
-            lambda: PK.probe_kernel(codes, sstart, dp.hx, dp.pf_tbl,
+            lambda: PK.probe_kernel(codes, starts, dp.hx, dp.pf_tbl,
                                     dp.hf_tbl, **opts),
             lambda: PD._probe_kernel(codes, sstart, dp.hx, dp.pf_tbl,
                                      dp.hf_tbl, **opts))}
@@ -1119,20 +1154,23 @@ def plan_kernel_rows(torch, dp, reads, spans, *, stride: int, nes: int,
                                  f"version at k={dp.k}: max abs err {err}")
         ms = _call_ms(torch, kern, reps=reps)
         plain_ms = _call_ms(torch, plain, reps=3)
+        n_cuda = _kernels_per_call(kern)
         L = len(rcodes) if name == "runs_kernel" else len(codes)
         if name == "runs_kernel":
             nbytes, ops, extra = runs_need(torch, dp, rcodes, want, rcap)
             extra.update(n=int(want[-1]), rcap=rcap)
         else:
-            nbytes, ops, extra = probe_need(torch, dp, codes, sstart, opts,
+            nbytes, ops, extra = probe_need(torch, dp, codes, starts, opts,
                                             want)
             extra.update(of=bool(want[5]), stats=want[6].tolist())
         bound, by = _bound_ms(nbytes, ops)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound, bound_by=by, L=L, **extra)
-        log(f"[devplan] {name} k={dp.k} L={L}: equal to its plain version; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-            f"{bound:.4f} ms ({by}); {extra}")
+                          bound_ms=bound, bound_by=by, L=L,
+                          cuda_kernels=n_cuda, **extra)
+        log(f"[devplan] {name} {tag} ({len(reads)} reads, "
+            f"{sum(map(len, reads))} bp) k={dp.k} L={L}: equal to its plain "
+            f"version; kernel {ms:.4f} ms ({n_cuda} CUDA kernels a call), "
+            f"plain {plain_ms:.1f} ms, bound {bound:.4f} ms ({by}); {extra}")
     return rows
 
 
@@ -1148,20 +1186,13 @@ def phase_devplan(device, sl: dict, workdir: str, head: str,
     from ratatosk_tpu_torch.correct.engine import _NEAR_EXACT_SKIP, Corrector
     from ratatosk_tpu_torch.correct.seeds import (find_runs,
                                                   find_weak_seeds_batch)
-    from ratatosk_tpu_torch.ops.plan_device import DevicePlanner
     from ratatosk_tpu_torch.pipeline import correct_file
     o1 = sl["o1"]
     stride, nes = o1.weak_seed_stride, _NEAR_EXACT_SKIP
     batches = fallbacks = 0
     rows = {n: {} for n in PLAN_KERNELS}
-    for name, corr, path in (("k31", sl["corr1"], sl["lr_path"]),
-                             ("k63", sl["corr2"], sl["p1_path"])):
+    for name, corr, dp, reads, t_build in plan_batches(sl, device):
         cdbg = corr.cdbg
-        reads = _first_batch(path, o1.read_batch_bp)
-        t = time.time()
-        dp = DevicePlanner.build(cdbg, device)
-        dp.warmup(o1.read_batch_bp, stride=stride, near_exact_skip=nes)
-        t_build = time.time() - t
 
         def host():
             runs = [find_runs(cdbg, r) for r in reads]
@@ -1202,9 +1233,13 @@ def phase_devplan(device, sl: dict, workdir: str, head: str,
             f"{', '.join(f'{x:.1f}' for x in ms['host'])}, device planner "
             f"{', '.join(f'{x:.1f}' for x in ms['device'])}; "
             f"n_fallback {n_fb}; probe stats {dp.last_stats.tolist()}")
-        for kname, row in plan_kernel_rows(torch, dp, reads, spans,
-                                           stride=stride, nes=nes).items():
-            rows[kname][name] = row
+        # the kernels on the batch and on its first 16 reads alone (both
+        # padded to the tier): the time a call takes whatever the batch holds
+        for tag, n in ((name, len(reads)), (f"{name}_16", 16)):
+            for kname, row in plan_kernel_rows(
+                    torch, dp, reads[:n], [s for s in spans if s[0] < n],
+                    stride=stride, nes=nes, tag=tag).items():
+                rows[kname][tag] = row
 
     o1d = dataclasses.replace(o1, plan_on_device=True)
     corr = Corrector(sl["corr1"].cdbg, sl["corr1"].colors, o1d, device=device)

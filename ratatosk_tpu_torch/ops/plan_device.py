@@ -189,6 +189,34 @@ def probe_caps(qcap: int):
     return max(qcap // 8, 1 << 12), qcap * 4
 
 
+def overflow_cap(stats, n: int, *, qcap: int, hcap: int) -> str:
+    """Which cap an overflowing probe batch's `of` came from, read from its
+    stats and the caps: "qcap" if some (kind, side) qualified more
+    positions, "hcap" if it has more seeds, "tcap" if its survivors reached
+    the total cap (stats hold min(survivors, tcap), so a total of exactly
+    tcap with a step over scap reads as tcap), else "scap"."""
+    _, tcap = probe_caps(qcap)
+    if int(stats[1]) > qcap:
+        return "qcap"
+    if n > hcap:
+        return "hcap"
+    if int(stats[2]) == tcap:
+        return "tcap"
+    return "scap"
+
+
+def span_sstart(starts, L: int):
+    """The span start of every concat position [L] from the spans' starts
+    (int64, ascending): the last start at or before the position, 0 before
+    the first (and everywhere without spans). The plain probe's per-position
+    input; the probe kernel takes the starts themselves."""
+    pos = torch.arange(L, dtype=torch.int64, device=starts.device)
+    if starts.numel() == 0:
+        return torch.zeros_like(pos)
+    j = torch.searchsorted(starts, pos, right=True) - 1
+    return torch.where(j >= 0, starts[torch.clamp(j, min=0)], 0)
+
+
 def _probe_kernel(codes, sstart, hx: HX.HashKmerIndex, pf_tbl, hf_tbl, *,
                   k: int, stride: int, nes: int, subs: bool, indels: bool,
                   pf_bits: int, hf_bits: int, qcap: int, hcap: int):
@@ -335,6 +363,9 @@ class DevicePlanner:
     min_tier: int = 0
     # last probe stats [n_allowed, max n_qual, survivors, n_seeds]
     last_stats: Optional[np.ndarray] = None
+    # fallen-back probe batches by the cap their `of` came from
+    # (overflow_cap)
+    fallback_caps: dict = dataclasses.field(default_factory=dict)
     # seconds by part of the planner's batches (TIMERS); the rest of
     # Corrector.plan_batch is its "plan" timer less these host parts
     timers: dict = dataclasses.field(
@@ -426,8 +457,8 @@ class DevicePlanner:
         codes = self._upload(np.full(L, 4, np.uint8))
         runs, probe = self._kernels()
         r = runs(codes, self.hx, self.nk_dev, k=k, rcap=max(L // 24, 1 << 12))
-        p = probe(codes, torch.zeros_like(codes, dtype=torch.int64), self.hx,
-                  self.pf_tbl, self.hf_tbl,
+        p = probe(codes, self._span_arg(self._upload(np.zeros(0, np.int64)),
+                                        L), self.hx, self.pf_tbl, self.hf_tbl,
                   **self.probe_options(L, stride=stride,
                                        near_exact_skip=near_exact_skip,
                                        subs=subs, indels=indels))
@@ -499,10 +530,9 @@ class DevicePlanner:
     # ---- 1-edit probe ----
 
     def probe_inputs(self, reads, spans):
-        """(codes, sstart, starts) of a batch's probe dispatch: the spans
-        (read_idx, a, b) concatenated with separators and padded to the pad
-        tier (which it raises), each position's span start, and each span's
-        offset."""
+        """(codes, starts) of a batch's probe dispatch: the spans (read_idx,
+        a, b) concatenated with separators and padded to the pad tier (which
+        it raises), and each span's offset (int64, ascending)."""
         parts, starts = [], []
         off = 0
         sep = np.full(1, 4, np.uint8)
@@ -517,11 +547,12 @@ class DevicePlanner:
         self.min_tier = max(self.min_tier, L)
         codes = np.full(L, 4, np.uint8)
         codes[:len(concat)] = concat
-        starts_arr = np.asarray(starts + [L], np.int64)
-        sstart = np.zeros(L, np.int64)
-        for i, s0 in enumerate(starts):
-            sstart[s0:starts_arr[i + 1]] = s0
-        return codes, sstart, starts
+        return codes, np.asarray(starts, np.int64)
+
+    def _span_arg(self, starts, L: int):
+        """The probe's span input: the starts for the kernel's wrapper, a
+        start per position (span_sstart) for the plain version."""
+        return span_sstart(starts, L) if self.impl == "torch" else starts
 
     def probe_options(self, L: int, *, stride: int, near_exact_skip: int,
                       subs: bool = True, indels: bool = True) -> dict:
@@ -537,27 +568,32 @@ class DevicePlanner:
                        indels: bool = True):
         """spans: list of (read_idx, a, b). Queues the probe on the device."""
         t0 = time.time()
-        codes, sstart, starts = self.probe_inputs(reads, spans)
-        kw = self.probe_options(len(codes), stride=stride,
+        codes, starts = self.probe_inputs(reads, spans)
+        L = len(codes)
+        kw = self.probe_options(L, stride=stride,
                                 near_exact_skip=near_exact_skip, subs=subs,
                                 indels=indels)
         ev = self._event()
-        out = self._kernels()[1](self._upload(codes), self._upload(sstart),
-                                 self.hx, self.pf_tbl, self.hf_tbl, **kw)
-        return (out, starts, spans, kw["hcap"],
-                self._dispatched("probe", t0, ev))
+        out = self._kernels()[1](
+            self._upload(codes), self._span_arg(self._upload(starts), L),
+            self.hx, self.pf_tbl, self.hf_tbl, **kw)
+        return (out, starts, spans, kw, self._dispatched("probe", t0, ev))
 
     def collect_probe(self, handle) -> Optional[List[list]]:
         """Blocks; per-span weak SolidRun lists (None = overflow: the caller
         plans this batch on the host)."""
         from ratatosk_tpu_torch.correct.seeds import SolidRun
-        (sel, ex_row, ex_fw, varid, n, of, stats), starts, spans, hcap, ev \
+        (sel, ex_row, ex_fw, varid, n, of, stats), starts, spans, kw, ev \
             = handle
         t0 = self._waited("probe", ev)
         self.last_stats = stats.cpu().numpy()
+        hcap = kw["hcap"]
         if bool(of) or int(n) > hcap:
             # capacity overflow: this batch falls back to the host probe
             self.n_fallback += 1
+            cap = overflow_cap(self.last_stats, int(n), qcap=kw["qcap"],
+                               hcap=hcap)
+            self.fallback_caps[cap] = self.fallback_caps.get(cap, 0) + 1
             self._add("probe_wait", t0)
             return None
         k = self.k
@@ -571,9 +607,8 @@ class DevicePlanner:
         if n == 0:
             self._add("probe_build", t0)
             return out
-        starts_arr = np.asarray(starts, np.int64)
-        si = np.searchsorted(starts_arr, sel, side="right") - 1
-        rpos = sel - starts_arr[si]
+        si = np.searchsorted(starts, sel, side="right") - 1
+        rpos = sel - starts[si]
         is_ex = ex_row >= 0
         # varid packs ((row*3 + kind) << 1) | fw
         vt = np.maximum(varid, 0) >> 1

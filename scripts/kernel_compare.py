@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time versions of the fused beam kernel or of the finish kernel on one
-card, on the same launches.
+"""Time versions of the fused beam kernel, the finish kernel or the device
+planner's two kernels on one card, on the same launches.
 
-    python3 scripts/kernel_compare.py [--kernel beam|finish] [--genome-bp N]
-        [--long-reads N] [--order old,new,new,old] NAME=DIR [NAME=DIR ...]
+    python3 scripts/kernel_compare.py [--kernel beam|finish|runs|probe|plan]
+        [--split [NAME,...]] [--genome-bp N] [--long-reads N]
+        [--order old,new,new,old]
+        NAME=DIR [NAME=DIR ...]
 
 Each DIR is a tree that holds the kernel's source and wrapper
 (`ratatosk_tpu_torch/csrc/beam.cu` and `ops/beam_kernel.py`, or
@@ -23,7 +25,23 @@ per step (the call's time over the launch's T). The finish kernel: 10
 calls, us per row of the longest region (the call's time over its rows,
 max(tgt_len, best_end) + 1). A library that exports `beam_clock_read` or
 `finish_clock_read` (an instrumented copy) also gets its SM cycles by part,
-per region-step or per row. Needs a CUDA device.
+per region-step or per row.
+
+The planner's kernels (`--kernel runs`, `probe`, or `plan` for both): each
+tree's `csrc/plan.cu` is built alone and driven through its own
+`ops/plan_kernel.py` (a tree whose probe takes a start per position,
+`sstart`, gets one; a tree that takes the span starts gets those). The
+batches are chip_smoke.py's `[devplan]` batches (`plan_batches`): per graph
+(k=31, k=63) the first ~1 Mbp read batch and its first 16 reads, padded to
+the planner's tier (L = 2^21). Per batch and tree, in the order given: the
+result against the plain version (tensor for tensor; `of` and stats[0:3]
+on a batch whose caps overflow), then the mean of 10 calls, each behind a
+device sleep. With `--split` every tree's launcher (or the named trees'
+only: a tree may be given twice, under two names) is built from an
+instrumented copy (written beside its library under `build/`) that records
+a CUDA event after each of its kernel launches: each call's time is then
+also printed per CUDA kernel, with the number of kernels a call runs.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,6 +50,7 @@ import argparse
 import ctypes
 import hashlib
 import importlib.util
+import re
 import subprocess
 import sys
 import tempfile
@@ -55,6 +74,49 @@ PARTS = {("beam", 8): ("bookkeeping", "sprint", "cand_stats",
                          "snapshots", "endcols_gates_packing")}
 SOURCES = {"beam": ("beam.cu", "beam_kernel", "beam_search_launch"),
            "finish": ("finish.cu", "finish_kernel", "finish_bundle_launch")}
+PLAN_KINDS = {"runs": ("runs_kernel",), "probe": ("probe_kernel",),
+              "plan": ("runs_kernel", "probe_kernel")}
+PLAN_ENTRIES = ("plan_runs_launch", "plan_probe_launch")
+# the tile passes' phases whose SM cycles a --split copy counts
+# (csrc/plan.cu: kClkPhases, PHASE)
+CLOCK_PHASES = 10
+CLOCK_NAMES = {"probe_kernel": ("extent", "bases", "exact", "allowed",
+                                "half_tests", "qual_lookback", "listing",
+                                "variants", "survivors", "seeds_out"),
+               "runs_kernel": ("extent", "bases", "records", "runs_out")}
+# what --split adds to a copy of csrc/plan.cu: an event recorded at the
+# start of each launcher (after its `cudaStream_t st` line) and after each
+# kernel launch, with the launched kernel's name
+SPLIT_PRELUDE = r"""
+static cudaEvent_t split_ev[33];
+static const char* split_nm[32];
+static int split_n = -1;
+static void split_start(cudaStream_t st) {
+  static bool made = false;
+  if (!made) {
+    for (int i = 0; i < 33; ++i) cudaEventCreate(&split_ev[i]);
+    made = true;
+  }
+  split_n = 0;
+  cudaEventRecord(split_ev[0], st);
+}
+static void split_mark(cudaStream_t st, const char* name) {
+  if (split_n < 0 || split_n >= 32) return;
+  split_nm[split_n] = name;
+  cudaEventRecord(split_ev[++split_n], st);
+}
+// ms of each kernel of the last launcher call (waits for it); their count
+extern "C" int plan_split_read(float* ms, int cap) {
+  const int n = split_n;
+  if (n <= 0) return 0;
+  cudaEventSynchronize(split_ev[n]);
+  for (int i = 0; i < n && i < cap; ++i)
+    cudaEventElapsedTime(&ms[i], split_ev[i], split_ev[i + 1]);
+  split_n = -1;
+  return n;
+}
+extern "C" const char* plan_split_name(int i) { return split_nm[i]; }
+"""
 
 
 def load_tree(kind: str, name: str, tree: Path):
@@ -85,6 +147,246 @@ def load_tree(kind: str, name: str, tree: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return lib, mod
+
+
+def instrument_plan(text: str) -> str:
+    """A copy of csrc/plan.cu whose launchers record a CUDA event at their
+    start and after each kernel launch (SPLIT_PRELUDE)."""
+    eol = text.index("\n", text.rindex("#include")) + 1
+    text = "#define PLAN_CLOCKS 1\n" + text[:eol] + SPLIT_PRELUDE + text[eol:]
+    text, n_start = re.subn(r"cudaStream_t st = \(cudaStream_t\)stream;",
+                            r"\g<0> split_start(st);", text)
+    text, n_mark = re.subn(r"(\w+)<<<[^;]*;",
+                           lambda m: f'{m.group(0)} split_mark(st, '
+                           f'"{m.group(1)}");', text)
+    if n_start != len(PLAN_ENTRIES) or n_mark == 0:
+        raise RuntimeError(f"plan.cu: found {n_start} launchers and {n_mark} "
+                           "launches to instrument")
+    return text
+
+
+def ptxas_report(text: str) -> str:
+    """Each kernel's registers and spill stores from nvcc -Xptxas -v."""
+    out = []
+    for block in text.split("Compiling entry function")[1:]:
+        fn = re.search(r"\d+([a-z_]+)E", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        out.append(f"{fn.group(1) if fn else '?'} "
+                   f"{regs.group(1) if regs else '?'} registers "
+                   f"{spill.group(1) if spill else '?'} B spilled")
+    return "; ".join(out)
+
+
+class _LibOf:
+    """ops/cuda_lib as a tree's wrapper module sees it, with that tree's
+    library in place of this checkout's."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def library(self):
+        return self._lib
+
+    def __getattr__(self, name):
+        from ratatosk_tpu_torch.ops import cuda_lib
+        return getattr(cuda_lib, name)
+
+
+def load_plan_tree(name: str, tree: Path, split: bool):
+    """(library, wrapper module) of one tree's planner kernels: its
+    csrc/plan.cu built alone (instrumented with --split) and its own
+    ops/plan_kernel.py bound to that library."""
+    from ratatosk_tpu_torch.ops import cuda_lib
+    text = (tree / "ratatosk_tpu_torch" / "csrc" / "plan.cu").read_text()
+    if split:
+        text = instrument_plan(text)
+    h = hashlib.sha256((text + " ".join(cuda_lib.NVCC_FLAGS))
+                       .encode()).hexdigest()[:16]
+    build = tree / "ratatosk_tpu_torch" / "build"
+    out = build / f"libplan_{h}.so"
+    if not out.exists():
+        build.mkdir(parents=True, exist_ok=True)
+        src = build / f"plan_{h}.cu"
+        src.write_text(text)
+        proc = subprocess.run([cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-o",
+                               str(out), str(src)], capture_output=True,
+                              text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+        print(f"{name}: ptxas " + ptxas_report(proc.stdout + proc.stderr),
+              flush=True)
+    lib = ctypes.CDLL(str(out))
+    for entry in PLAN_ENTRIES:
+        res, args = cuda_lib.SIGNATURES[entry]
+        fn = getattr(lib, entry)
+        fn.restype, fn.argtypes = res, args
+    if split:
+        lib.plan_split_read.restype = ctypes.c_int
+        lib.plan_split_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.plan_split_name.restype = ctypes.c_char_p
+        lib.plan_split_name.argtypes = [ctypes.c_int]
+        if hasattr(lib, "plan_clock_read"):
+            lib.plan_clock_read.restype = ctypes.c_int
+            lib.plan_clock_read.argtypes = [ctypes.c_void_p]
+    spec = importlib.util.spec_from_file_location(
+        f"plan_kernel_{name}", tree / "ratatosk_tpu_torch" / "ops" /
+        "plan_kernel.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.cuda_lib = _LibOf(lib)
+    return lib, mod
+
+
+def plan_calls(torch, dp, reads, spans, stride: int):
+    """(kernel name -> (call(module), plain result), the probe's stride
+    options): the runs and the probe of one batch, called through a tree's
+    wrapper module, and their plain versions' results."""
+    import numpy as np
+    from ratatosk_tpu_torch.correct.engine import _NEAR_EXACT_SKIP
+    from ratatosk_tpu_torch.ops import plan_device as PD
+    dev = dp.device
+    rcodes, _, rcap = dp.runs_inputs(reads)
+    rcodes = torch.from_numpy(rcodes).to(dev)
+    got = dp.probe_inputs(reads, spans)
+    codes = torch.from_numpy(got[0]).to(dev)
+    L = len(codes)
+    starts = torch.from_numpy(np.asarray(got[-1], np.int64)).to(dev)
+    sstart = PD.span_sstart(starts, L)
+    opts = dp.probe_options(L, stride=stride, near_exact_skip=_NEAR_EXACT_SKIP)
+
+    def probe(mod):
+        span_arg = sstart if "sstart" in mod.PROBE_PTRS else starts
+        return mod.probe_kernel(codes, span_arg, dp.hx, dp.pf_tbl,
+                                dp.hf_tbl, **opts)
+
+    return {"runs_kernel": (
+        lambda mod: mod.runs_kernel(rcodes, dp.hx, dp.nk_dev, k=dp.k,
+                                    rcap=rcap),
+        PD._runs_kernel(rcodes, dp.hx, dp.nk_dev, k=dp.k, rcap=rcap)),
+        "probe_kernel": (probe, PD._probe_kernel(
+            codes, sstart, dp.hx, dp.pf_tbl, dp.hf_tbl, **opts))}
+
+
+def run_plan(torch, lib, mod, call, want, name: str, reps=10):
+    """(ms, [(kernel, ms)] or None) of one tree's planner kernel on one
+    batch; raises unless it equals the plain version (on an overflowing
+    probe batch: `of` and stats[0:3])."""
+    got = call(mod)
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want))
+    if name == "probe_kernel" and bool(want[5]):
+        pairs = [(got[5], want[5]), (got[6][:3], want[6][:3])]
+    if not all(g.dtype == w.dtype and torch.equal(g, w) for g, w in pairs):
+        raise AssertionError(f"{mod.__name__}.{name} differs from its plain "
+                             "version")
+    split = getattr(lib, "plan_split_read", None)
+    clk = getattr(lib, "plan_clock_read", None)
+    cycles = (ctypes.c_ulonglong * (2 * CLOCK_PHASES))()
+    if clk is not None and clk(cycles):
+        raise RuntimeError("plan_clock_read failed")
+    buf = (ctypes.c_float * 32)()
+    ms, parts = 0.0, None
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        call(mod)
+        b.record()
+        torch.cuda.synchronize()
+        ms += a.elapsed_time(b) / reps
+        if split is not None:
+            n = split(buf, 32)
+            names = [lib.plan_split_name(i).decode() for i in range(n)]
+            if parts is None:
+                parts = [[nm, 0.0] for nm in names]
+            for p, v in zip(parts, buf[:n]):
+                p[1] += v / reps
+    if clk is not None:
+        if clk(cycles):
+            raise RuntimeError("plan_clock_read failed")
+        k = 1 if name == "runs_kernel" else 0
+        cyc = cycles[k * CLOCK_PHASES:(k + 1) * CLOCK_PHASES]
+        tot = max(sum(cyc), 1)
+        parts.append(["; SM cycles by phase (share)", ", ".join(
+            f"{ph} {100 * c / tot:.1f}%" for ph, c in
+            zip(CLOCK_NAMES[name], cyc) if c)])
+    return ms, parts
+
+
+def random_read_rate(torch, dev, reps: int = 5) -> str:
+    """The card's rate of random 32-byte sectors: torch.take of 2^24 random
+    4-byte entries of a 2 GiB table (each read its own sector, with 12
+    bytes of index and output streamed beside it), the planner kernels'
+    yardstick."""
+    tbl = torch.zeros(1 << 29, dtype=torch.int32, device=dev)
+    idx = torch.randint(0, 1 << 29, (1 << 24,), device=dev)
+    torch.take(tbl, idx)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        torch.take(tbl, idx)
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / reps
+    rate = (1 << 24) / ms * 1e3
+    del tbl, idx
+    return (f"random reads: 2^24 from 2 GiB in {ms:.4f} ms, {rate / 1e9:.3f}G "
+            f"sectors/s ({rate * 32 / 1e12:.3f} TB/s at 32 B, "
+            f"{rate * 64 / 1e12:.3f} TB/s at 64 B a read)")
+
+
+def plan_sizes(CS, sl, dev):
+    """[devplan]'s batches (CS.plan_batches) and the first 16 reads of
+    each: (graph, size, planner, reads, the spans the host planner would
+    probe)."""
+    from ratatosk_tpu_torch.correct.seeds import find_runs
+    for graph, corr, dp, batch, _ in CS.plan_batches(sl, dev):
+        runs = [find_runs(corr.cdbg, r) for r in batch]
+        spans = CS._probe_spans(corr.cdbg, corr.colors, runs, batch,
+                                sl["o1"].weak_seed_min_gap)
+        for size, n in (("batch", len(batch)), ("16 reads", 16)):
+            yield graph, size, dp, batch[:n], [s for s in spans if s[0] < n]
+
+
+def main_plan(torch, CS, args, trees, order, dev, smi) -> int:
+    """--kernel runs|probe|plan: the planner's kernels of each tree on
+    [devplan]'s batches, in turns."""
+    names = PLAN_KINDS[args.kernel]
+    split = (set() if args.split is None else
+             set(trees) if args.split == "" else set(args.split.split(",")))
+    print(random_read_rate(torch, dev), flush=True)
+    libs = {n: load_plan_tree(n, Path(d).resolve(), n in split)
+            for n, d in trees.items()}
+    with tempfile.TemporaryDirectory(prefix="kernel_compare_") as workdir:
+        sl = CS.run_slice(dev, args.genome_bp, args.long_reads, workdir, smi)
+        for graph, size, dp, reads, spans in plan_sizes(CS, sl, dev):
+            calls = plan_calls(torch, dp, reads, spans,
+                               sl["o1"].weak_seed_stride)
+            for kname in names:
+                call, want = calls[kname]
+                extra = (f"{int(want[-1])} runs" if kname == "runs_kernel"
+                         else f"stats {want[6].tolist()}, of "
+                         f"{bool(want[5])}")
+                print(f"{kname} {graph} {size}: {len(reads)} reads / "
+                      f"{sum(map(len, reads))} bp, {len(spans)} spans; "
+                      f"{extra}", flush=True)
+                for tname in order:
+                    lib, mod = libs[tname]
+                    ms, parts = run_plan(torch, lib, mod, call, want, kname)
+                    line = f"  {tname}: {ms:.4f} ms; equal to the plain version"
+                    if parts is not None:
+                        kern = [p for p in parts if isinstance(p[1], float)]
+                        line += (f"; {len(kern)} CUDA kernels: " + ", ".join(
+                            f"{p} {v:.4f}" for p, v in kern))
+                        line += "".join(f"{p} {v}" for p, v in parts
+                                        if not isinstance(v, float))
+                    print(line, flush=True)
+    print(smi, flush=True)
+    return 0
 
 
 def clocks(kind: str, lib):
@@ -190,7 +492,12 @@ def run_finish(torch, lib, mod, b, res, want, reps=10):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=tuple(SOURCES), default="beam")
+    ap.add_argument("--kernel", choices=tuple(SOURCES) + tuple(PLAN_KINDS),
+                    default="beam")
+    ap.add_argument("--split", nargs="?", const="", default=None,
+                    metavar="NAME,...",
+                    help="planner kernels: time each CUDA kernel of a call "
+                    "(of the named trees only, when names are given)")
     ap.add_argument("--genome-bp", type=int, default=4_000_000)
     ap.add_argument("--long-reads", type=int, default=256)
     ap.add_argument("--order", default=None,
@@ -213,6 +520,8 @@ def main(argv=None) -> int:
     smi = CS._cmd(["nvidia-smi", "--query-gpu=name,power.limit",
                    "--format=csv,noheader"]).splitlines()[0]
     print(smi, flush=True)
+    if kind in PLAN_KINDS:
+        return main_plan(torch, CS, args, trees, order, dev, smi)
     libs = {n: load_tree(kind, n, Path(d).resolve()) for n, d in trees.items()}
     with tempfile.TemporaryDirectory(prefix="kernel_compare_") as workdir:
         sl = CS.run_slice(dev, args.genome_bp, args.long_reads, workdir, smi)

@@ -16,7 +16,8 @@ impl="torch" on the same pass-1 graph, whose FASTQ must equal the kernels'.
 
 --plan-ab runs each pass again with plan_on_device=True on a fresh
 Corrector over the same graph: its FASTQ must equal the host planner's; its
-seconds, device memory and n_fallback are reported (devplan_built is false
+seconds, device memory, n_fallback and fallback_caps (the fallen-back
+batches by the probe cap that overflowed) are reported (devplan_built is false
 past the device planner's index-size limit, where the host plans), with
 plan_split_s: the planner's batches split into the runs and probe
 dispatches' host and device seconds, the host's wait for them, building
@@ -209,6 +210,9 @@ def plan_on_device_pass(cdbg, colors, opt, device, src, out, pass_no,
     rec["devplan_built"] = corr.devplan is not None
     rec["n_fallback"] = (corr.devplan.n_fallback if corr.devplan is not None
                          else None)
+    # fallen-back batches by the probe cap that overflowed (overflow_cap)
+    rec["fallback_caps"] = (dict(corr.devplan.fallback_caps)
+                            if corr.devplan is not None else None)
     if corr.devplan is not None:
         # the planner's batches split by part (DevicePlanner.timers), and
         # the rest of plan_batch: the plan timer less the host parts

@@ -5,10 +5,15 @@ the sorted-key lookup, its 128-bit and hash helpers equal a Python-int
 oracle and the JAX helpers over edge values, and a Corrector that plans on
 the device writes what the host planner writes, also when a batch overflows
 its caps and falls back to the host. The probe's overflow flag is pinned to
-the three counts the probe kernel keeps. Cases marked `cuda` run the
-planner and its kernels (csrc/plan.cu) on the card, each kernel tensor for
-tensor against its plain version; JAX is imported inside the tests that use
-it, so they also run where JAX is not installed:
+the three counts the probe kernel keeps, and the cap a fallen-back batch
+overflowed is read from its stats. The kernels' closed form past a batch's
+extent (ops/plan_kernel.py: the tail's allowed positions, the fill values,
+the miss record) is held against the plain versions at extents on a tile
+boundary, in a halo, at one valid window, at none and at L, and the span
+starts give the per-position span start the planner used to fill. Cases
+marked `cuda` run the planner and its kernels (csrc/plan.cu) on the card,
+each kernel tensor for tensor against its plain version; JAX is imported
+inside the tests that use it, so they also run where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_plan_device.py
 """
 
@@ -260,11 +265,27 @@ def _probe_batch(k: int):
         reads = [noisy_read(rng, genome,
                             int(rng.integers(0, len(genome) - 2000)), 2000,
                             err=0.06)[0] for _ in range(4)]
-        codes, sstart, _ = dp.probe_inputs(reads, [(i, 100, 1900)
-                                                   for i in range(4)])
+        codes, starts = dp.probe_inputs(reads, [(i, 100, 1900)
+                                                for i in range(4)])
+        starts = torch.from_numpy(starts)
         _BATCHES[k] = (dp, reads, torch.from_numpy(codes),
-                       torch.from_numpy(sstart), cdbg)
+                       PD.span_sstart(starts, len(codes)), cdbg, starts)
     return _BATCHES[k][:4]
+
+
+def _allowed(dp, codes, sstart, *, stride, nes):
+    """The probe's allowed positions, from the plain helpers: no exact
+    k-window hit within nes, on its span's stride."""
+    k, L = dp.k, codes.shape[0]
+    whi, wlo, valid = PD._pack_windows(codes, k)
+    row, _, _ = HX.probe_rowflag(dp.hx, wlo, whi if k > 32 else None, valid)
+    hit = torch.cat([row >= 0, torch.zeros(k - 1, dtype=torch.bool)])
+    skip = torch.zeros(L, dtype=torch.bool)
+    if nes > 0:
+        skip = torch.nn.functional.max_pool1d(
+            hit.float()[None, None], 2 * nes + 1, stride=1,
+            padding=nes)[0, 0] > 0
+    return ~skip & ((torch.arange(L) - sstart) % stride == 0)
 
 
 def _probe_counts(dp, codes, sstart, *, stride, nes, qcap):
@@ -276,15 +297,7 @@ def _probe_counts(dp, codes, sstart, *, stride, nes, qcap):
     k, L = dp.k, codes.shape[0]
     h = (k - 1) // 2
     pos = torch.arange(L)
-    whi, wlo, valid = PD._pack_windows(codes, k)
-    row, _, _ = HX.probe_rowflag(dp.hx, wlo, whi if k > 32 else None, valid)
-    hit = torch.cat([row >= 0, torch.zeros(k - 1, dtype=torch.bool)])
-    skip = torch.zeros(L, dtype=torch.bool)
-    if nes > 0:
-        skip = torch.nn.functional.max_pool1d(
-            hit.float()[None, None], 2 * nes + 1, stride=1,
-            padding=nes)[0, 0] > 0
-    allowed = ~skip & ((pos - sstart) % stride == 0)
+    allowed = _allowed(dp, codes, sstart, stride=stride, nes=nes)
     _, hlo, hvalid = PD._pack_windows(codes, h)
     half = hvalid & HX.prefilter_test(dp.hf_tbl, dp.hf_bits,
                                       HX.hash_key64(hlo))
@@ -345,6 +358,135 @@ def test_probe_overflow_flag_is_its_counts(monkeypatch, k, over):
     assert stats[1:3].tolist() == [max(nqs), min(tot, caps["tcap"])]
 
 
+@pytest.mark.parametrize("k", [31, 63])
+@pytest.mark.parametrize("over", ["qcap", "scap", "tcap", "hcap"])
+def test_probe_fallback_records_its_cap(monkeypatch, k, over):
+    """A batch that falls back is counted under the cap its `of` came from,
+    read from its stats (overflow_cap): each cap exceeded by one in turn
+    (the set-up of test_probe_overflow_flag_is_its_counts, with the total
+    cap one above the survivors unless it is the one exceeded)."""
+    dp, _, codes, sstart = _probe_batch(k)
+    nqs, steps, total = _probe_counts(dp, codes, sstart, stride=1, nes=16,
+                                      qcap=len(codes))
+    caps = dict(qcap=max(nqs), scap=max(steps), tcap=total + 1)
+    opts = dict(dp.probe_options(len(codes), stride=1, near_exact_skip=16),
+                hcap=len(codes))
+    if over == "hcap":
+        monkeypatch.setattr(PD, "probe_caps",
+                            lambda qcap: (caps["scap"], caps["tcap"]))
+        n = PD._probe_kernel(codes, sstart, dp.hx, dp.pf_tbl, dp.hf_tbl,
+                             **dict(opts, qcap=caps["qcap"]))[4]
+        opts["hcap"] = int(n) - 1
+    else:
+        caps[over] -= 2 if over == "tcap" else 1
+    monkeypatch.setattr(PD, "probe_caps",
+                        lambda qcap: (caps["scap"], caps["tcap"]))
+    opts["qcap"] = caps["qcap"]
+    out = PD._probe_kernel(codes, sstart, dp.hx, dp.pf_tbl, dp.hf_tbl,
+                           **opts)
+    fresh = dataclasses_replace(dp, fallback_caps={}, n_fallback=0)
+    assert fresh.collect_probe((out, np.zeros(1, np.int64), [(0, 0, 1)],
+                                opts, None)) is None
+    assert fresh.fallback_caps == {over: 1} and fresh.n_fallback == 1
+
+
+def test_span_sstart_is_the_planners_fill():
+    """span_sstart of the span starts equals the per-position span start
+    the planner filled before it passed the starts (each span's start from
+    its offset to the next span's, the last to L), and 0 without spans."""
+    dp, reads, codes, sstart = _probe_batch(31)
+    rng = np.random.default_rng(5)
+    for spans in ([(i, 100, 1900) for i in range(4)],
+                  [(i, int(a), int(a) + int(n)) for i, a, n in zip(
+                      rng.integers(0, 4, 40), rng.integers(0, 1500, 40),
+                      rng.integers(0, 300, 40))], []):
+        c, starts = dp.probe_inputs(reads, spans)
+        L = len(c)
+        bounds = list(starts) + [L]
+        fill = np.zeros(L, np.int64)
+        for i, s0 in enumerate(starts):
+            fill[s0:bounds[i + 1]] = s0
+        got = PD.span_sstart(torch.from_numpy(starts), L)
+        assert got.dtype == torch.int64 and got.tolist() == fill.tolist()
+    assert torch.equal(sstart, PD.span_sstart(_BATCHES[31][5], len(codes)))
+
+
+EXTENTS = ("none", "one window", "tile boundary", "halo", "L")
+EXTENT_STARTS = [0, 700, 1500, 2600, 3900]
+
+
+def _extent_case(k: int, name: str, dev=CPU):
+    """(planner, codes [4 tiles], span starts, E): the probe batch's bases
+    with every separator made a base, cut to 4 * TILE, then bases >= 4
+    from the extent E on: none (E = 0), one valid k-window (the first
+    exact hit from 1000 on, its bases alone), E on a tile boundary
+    (2 * TILE), E 8 short of a tile's end (its nes halo reaches into the
+    next tile), no padding (E = L)."""
+    dp, _, codes, _ = _probe_batch(k)
+    L = 4 * PK.TILE
+    base = codes[:L].clone()
+    base[base >= 4] = 1
+    whi, wlo, valid = PD._pack_windows(base, k)
+    row, _, _ = HX.probe_rowflag(dp.hx, wlo, whi if k > 32 else None, valid)
+    hit = int((row[1000:] >= 0).nonzero()[0, 0]) + 1000
+    E = {"none": 0, "one window": hit + k, "tile boundary": 2 * PK.TILE,
+         "halo": 3 * PK.TILE - 8, "L": L}[name]
+    c = torch.full((L,), 4, dtype=torch.uint8)
+    lo = E - k if name == "one window" else 0
+    c[lo:E] = base[lo:E]
+    if dev != CPU:
+        dp = DevicePlanner.build(_BATCHES[k][4], dev)
+    return (dp, c.to(dev), torch.tensor(EXTENT_STARTS, dtype=torch.int64,
+                                        device=dev), E)
+
+
+@pytest.mark.parametrize("name", EXTENTS)
+@pytest.mark.parametrize("stride", [1, 2, 3])
+@pytest.mark.parametrize("nes", [0, 16])
+def test_extent_closed_form_matches_plain(name, stride, nes):
+    """The kernels' closed form past the batch's extent against the plain
+    versions: the probe walks whole tiles up to E + nes, and the allowed
+    positions past them are the tail's on-stride positions (the plain
+    version's stats[0] is the walked part plus that); no seed lies past E;
+    the entries past n are L, -1, 0, -1. The runs' windows that start or
+    end a run lie in the tiles they walk, and the entries past n are P and
+    window P - 1's record, a miss's when the last window is not valid."""
+    k = 31
+    dp, codes, starts, E = _extent_case(k, name)
+    assert PK.extent(codes.numpy()) == E
+    L, P = len(codes), len(codes) - k + 1
+    sstart = PD.span_sstart(starts, L)
+    opts = dict(dp.probe_options(L, stride=stride, near_exact_skip=nes),
+                hcap=L)
+    sel, ex_row, ex_fw, varid, n, of, stats = PD._probe_kernel(
+        codes, sstart, dp.hx, dp.pf_tbl, dp.hf_tbl, **opts)
+    allowed = _allowed(dp, codes, sstart, stride=stride, nes=nes)
+    X = PK.probe_walk(L, nes, E)
+    assert X == min(L, max(1, -(-min(L, E + nes) // PK.TILE)) * PK.TILE)
+    assert int(allowed[X:].sum()) == PK.tail_allowed(starts.tolist(), X, L,
+                                                     stride)
+    assert int(stats[0]) == int(allowed[:X].sum()) + PK.tail_allowed(
+        starts.tolist(), X, L, stride)
+    n = int(n)
+    assert not bool(of) and (n == 0 or int(sel[n - 1]) < max(E - k + 2, 1))
+    fill = PK.PROBE_FILL
+    assert (sel[n:] == L).all() and (ex_row[n:] == fill[0]).all()
+    assert (ex_fw[n:] == fill[1]).all() and (varid[n:] == fill[2]).all()
+    rcap = 1 << 12
+    sidx, eidx, uid, dirn, o, nr = PD._runs_kernel(codes, dp.hx, dp.nk_dev,
+                                                   k=k, rcap=rcap)
+    nr = int(nr)
+    walk = PK.runs_tiles(L, k, E) * PK.RUNS_TILE
+    assert nr == 0 or max(int(sidx[nr - 1]), int(eidx[nr - 1])) < min(walk, P)
+    assert (sidx[nr:] == P).all() and (eidx[nr:] == P).all()
+    if E < L:
+        want = PK.miss_record(dp.hx, dp.nk_dev)
+        assert {(int(u), int(d), int(oo)) for u, d, oo in
+                zip(uid[nr:], dirn[nr:], o[nr:])} == {want}
+    if name != "none":
+        assert n > 0 and nr > 0
+
+
 def test_planner_routes_by_impl():
     """impl "torch" runs the plain versions; any other impl the kernels'
     wrappers, which take the plain versions on a CPU tensor and launch
@@ -358,7 +500,7 @@ def test_planner_routes_by_impl():
     assert _keys(got) == _keys(torch_dp.collect_runs(
         torch_dp.dispatch_runs(reads)))
     opts = dp.probe_options(len(codes), stride=2, near_exact_skip=16)
-    for g, w in zip(PK.probe_kernel(codes, sstart, dp.hx, dp.pf_tbl,
+    for g, w in zip(PK.probe_kernel(codes, _BATCHES[31][5], dp.hx, dp.pf_tbl,
                                     dp.hf_tbl, **opts),
                     PD._probe_kernel(codes, sstart, dp.hx, dp.pf_tbl,
                                      dp.hf_tbl, **opts)):
@@ -369,12 +511,13 @@ def test_planner_routes_by_impl():
 def test_plan_wrappers_refuse_other_devices():
     """A tensor on neither the CPU nor a CUDA device raises (no kernel, no
     plain fallback)."""
-    dp, _, codes, sstart = _probe_batch(31)
+    dp, _, codes, _ = _probe_batch(31)
     meta = codes.to("meta")
     with pytest.raises(ValueError, match="no kernel"):
         PK.runs_kernel(meta, dp.hx, dp.nk_dev, k=31, rcap=64)
     with pytest.raises(ValueError, match="no kernel"):
-        PK.probe_kernel(meta, sstart.to("meta"), dp.hx, dp.pf_tbl, dp.hf_tbl,
+        PK.probe_kernel(meta, _BATCHES[31][5].to("meta"), dp.hx, dp.pf_tbl,
+                        dp.hf_tbl,
                         **dp.probe_options(len(codes), stride=2,
                                            near_exact_skip=16))
 
@@ -499,6 +642,7 @@ def test_plan_kernels_match_plain_on_card(cuda_device, k, stride, nes):
     included (no cap overflows here); the runs also with a cap below their
     count, where the first rcap entries must still match."""
     _, reads, codes, sstart = _probe_batch(k)
+    starts = _BATCHES[k][5].to(cuda_device)
     dp = DevicePlanner.build(_BATCHES[k][4], cuda_device)
     rcodes, _, rcap = dp.runs_inputs(reads)
     rcodes = torch.from_numpy(rcodes).to(cuda_device)
@@ -512,7 +656,7 @@ def test_plan_kernels_match_plain_on_card(cuda_device, k, stride, nes):
     codes, sstart = codes.to(cuda_device), sstart.to(cuda_device)
     opts = dp.probe_options(len(codes), stride=stride, near_exact_skip=nes)
     launches = PK.probe_kernel.launches
-    got = PK.probe_kernel(codes, sstart, dp.hx, dp.pf_tbl, dp.hf_tbl, **opts)
+    got = PK.probe_kernel(codes, starts, dp.hx, dp.pf_tbl, dp.hf_tbl, **opts)
     assert PK.probe_kernel.launches == launches + 1
     want = PD._probe_kernel(codes, sstart, dp.hx, dp.pf_tbl, dp.hf_tbl,
                             **opts)
@@ -532,6 +676,7 @@ def test_plan_probe_overflow_on_card(monkeypatch, cuda_device, k, over):
                                       nes=16, qcap=len(codes))
     dp = DevicePlanner.build(_BATCHES[k][4], cuda_device)
     codes, sstart = codes.to(cuda_device), sstart.to(cuda_device)
+    starts = _BATCHES[k][5].to(cuda_device)
     caps = dict(qcap=max(nqs), scap=max(steps), tcap=total)
     monkeypatch.setattr(PD, "probe_caps",
                         lambda qcap: (caps["scap"], caps["tcap"]))
@@ -544,8 +689,27 @@ def test_plan_probe_overflow_on_card(monkeypatch, cuda_device, k, over):
     else:
         caps[over] -= 1
         opts["qcap"] = caps["qcap"]
-    got = PK.probe_kernel(codes, sstart, dp.hx, dp.pf_tbl, dp.hf_tbl, **opts)
+    got = PK.probe_kernel(codes, starts, dp.hx, dp.pf_tbl, dp.hf_tbl, **opts)
     want = PD._probe_kernel(codes, sstart, dp.hx, dp.pf_tbl, dp.hf_tbl,
                             **opts)
     assert bool(got[5]) and bool(want[5])
     assert torch.equal(got[6][:3], want[6][:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EXTENTS)
+@pytest.mark.parametrize("k", [31, 63])
+@pytest.mark.parametrize("stride,nes", [(1, 0), (2, 16), (3, 16)])
+def test_plan_kernels_at_extents_on_card(cuda_device, name, k, stride, nes):
+    """Both kernels against their plain versions at the extents of
+    test_extent_closed_form_matches_plain (on a tile boundary, in a halo, at
+    one valid window, at none, at L): every output tensor equal."""
+    dp, codes, starts, _ = _extent_case(k, name, cuda_device)
+    L = len(codes)
+    _equal(PK.runs_kernel(codes, dp.hx, dp.nk_dev, k=k, rcap=1 << 12),
+           PD._runs_kernel(codes, dp.hx, dp.nk_dev, k=k, rcap=1 << 12))
+    opts = dict(dp.probe_options(L, stride=stride, near_exact_skip=nes),
+                hcap=L)
+    got = PK.probe_kernel(codes, starts, dp.hx, dp.pf_tbl, dp.hf_tbl, **opts)
+    _equal(got, PD._probe_kernel(codes, PD.span_sstart(starts, L), dp.hx,
+                                 dp.pf_tbl, dp.hf_tbl, **opts))

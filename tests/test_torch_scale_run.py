@@ -136,6 +136,7 @@ def test_plan_ab_gives_the_host_planners_bytes(torch_run):
         assert (work / dev).read_bytes() == (work / host).read_bytes()
         ab = res["plan_ab"][p]
         assert ab["devplan_built"] and ab["n_fallback"] == 0, ab
+        assert ab["fallback_caps"] == {}, ab
         assert ab["read_batches"] == res["passes"][p]["read_batches"]
     assert res["kernel_check"]["identical"]
 
