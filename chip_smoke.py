@@ -13,9 +13,13 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      the timed pass 1);
   2. build: the kernel library from ratatosk_tpu_torch/csrc, with nvcc;
   3. the sprint kernel against its plain PyTorch version on the card, at
-     the main path's shapes (R=512, B=16, smax=8, W in {257, 192, 336}):
-     bit-identical, timed with CUDA events after a warm-up, with its bound
-     (bytes over 3.35 TB/s, int32 operations over 132 x 64 x 1.98 GHz);
+     the main path's shapes (B=16, smax=8, W in {257, 192, 336} and the
+     widest band, 1,024; R=512 and 128, the engine's largest and smallest
+     padding) on random band state: bit-identical, the kernel's call and
+     the plain version's timed with CUDA events behind a device sleep (the
+     host's enqueue left out), each with its bound (bytes over 3.35 TB/s,
+     int32 operations over 132 x 64 x 1.98 GHz, for the entries and
+     substeps the launch advances);
   4. the slice: the two-pass correction that bench.py drives (4 Mbp genome
      with 15% x 250 bp repeats, 40x 120 bp short reads, 4 kbp long reads at
      10% error, beam 16, 512 regions per launch, host planner, 2 threads),
@@ -54,7 +58,10 @@ Phases, one line each (any failure raises, and the script exits non-zero):
   5. [plain] pass 1 on the first 16 long reads through impl="auto", "steps"
      (per-step torch with the sprint kernel) and "torch" (plain): the three
      FASTQ files must be byte-identical, and each route launch only its own
-     kernels;
+     kernels; then the sprint kernel as in phase 3 on the "steps" run's
+     first launch at W=257, as the engine formed it. [wide] impl="steps" at
+     band_width=600 on the same reads must equal impl="torch" byte for
+     byte, with sprint launches past 512 columns;
   5b. [trace] pass 1 of the slice once more under torch.profiler: device
      busy share, pass seconds, plan / launch / finish shares, the kernels
      that take the device time; the FASTQ must equal the slice's;
@@ -108,7 +115,7 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      FASTQ must equal the [cli quarter] run's byte for byte, both index .npz
      files exist, and each process must launch both kernels.
 Launch counts are reset just before each path (the slice, [warm], each
-[plain] route, the 16-read planner run, the mesh and sharded runs, the two
+[plain] route, [wide]'s "steps" run, the 16-read planner run, the mesh and sharded runs, the two
 CLI runs, the -g run; each [dist] process counts its own) and read just
 after; the kernels' record sums them by path.
 The line before the last is the kernels' JSON record; the last line is
@@ -129,7 +136,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 1234
-KERNEL_SHAPES = dict(R=512, B=16, smax=8, widths=(257, 192, 336))
+# the sprint kernel's random launches: the engine's largest and smallest
+# padded row counts, the three buckets' bands and the widest band taken,
+# each width in the bucket that gives it
+KERNEL_SHAPES = dict(regions=(512, 128), B=16, smax=8,
+                     widths=(257, 192, 336, 1024),
+                     nt={257: 256, 192: 2048, 336: 5376, 1024: 2048})
 
 
 def log(msg: str) -> None:
@@ -228,6 +240,14 @@ def phase_build():
     log(f"[build] {path.relative_to(ROOT)} in {dt:.2f}s; ptxas: "
         f"{len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} "
         f"registers, {spills} bytes of spills")
+    # the sprint kernel at its widest, 32 columns a lane
+    for block in report.split("Compiling entry function")[1:]:
+        if "sprint_rows_kernelILi32E" in block.split("\n")[0]:
+            reg = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            log(f"[build] sprint_rows_kernel<32> (W up to 1,024): "
+                f"{reg.group(1) if reg else '?'} registers, "
+                f"{spill.group(1) if spill else '?'} bytes of spill stores")
 
 
 def sprint_inputs(rng, R, B, W, smax, nt):
@@ -254,20 +274,6 @@ def sprint_inputs(rng, R, B, W, smax, nt):
     return rwin, btgt, nb, newcols, wsall, mreg, live, plen
 
 
-def _time_ms(torch, fn, reps=20, warm=3):
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def _call_ms(torch, fn, reps=5):
     """Device ms of one call of fn (its kernel launches), the mean of
     `reps` after a warm-up call: CUDA events around each call, behind a
@@ -286,38 +292,63 @@ def _call_ms(torch, fn, reps=5):
     return tot
 
 
-def phase_kernels(torch, dev):
-    """Kernel vs plain version at each band width of the main path."""
+def sprint_cases(dev):
+    """The sprint kernel's random launches: (key, tensors), at B=16 and
+    smax=8, each width at R=512 (keyed by W) and then at R=128 (keyed
+    "W/R128"), drawn in that order from one generator."""
     import numpy as np
-    from ratatosk_tpu_torch.ops import sprint as SP
-    R, B, smax = KERNEL_SHAPES["R"], KERNEL_SHAPES["B"], KERNEL_SHAPES["smax"]
-    nt_of = {257: 256, 192: 2048, 336: 5376}
+    import torch
+    B, smax = KERNEL_SHAPES["B"], KERNEL_SHAPES["smax"]
     rng = np.random.default_rng(SEED)
-    rows = {}
-    for W in KERNEL_SHAPES["widths"]:
-        arrs = [torch.tensor(a, device=dev)
-                for a in sprint_inputs(rng, R, B, W, smax, nt_of[W])]
-        kr, kb = SP.sprint_rows(*arrs, smax=smax)
-        torch.cuda.synchronize()
-        rr, rbt = SP.sprint_rows_ref(*arrs, smax=smax)
-        err = max(int((kr - rr).abs().max()), int((kb - rbt).abs().max()))
-        if not (torch.equal(kr, rr) and torch.equal(kb, rbt)):
-            raise AssertionError(f"sprint_rows kernel differs from its plain "
-                                 f"version at W={W}: max abs err {err}")
-        ms = _time_ms(torch, lambda: SP.sprint_rows(*arrs, smax=smax))
-        plain = _time_ms(torch, lambda: SP.sprint_rows_ref(*arrs, smax=smax))
-        # bytes: every input once, both outputs once; operations: ~10 int32
-        # ops per cell of each live entry's substep row update and scan
-        nbytes = sum(a.numel() * 4 for a in arrs) + (R * B * W + R * W) * 4
-        m_reg, live = arrs[5].long(), arrs[6].long()
-        ops = 10 * W * int((m_reg * live.sum(dim=1)).sum())
-        bound, by = _bound_ms(nbytes, ops)
-        rows[W] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                       bound_ms=bound, bound_by=by)
-        log(f"[kernel] sprint_rows R={R} B={B} W={W} smax={smax}: "
-            f"bit-identical to sprint_rows_ref; kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, bound {bound:.4f} ms ({by})")
-    return rows
+    for R in KERNEL_SHAPES["regions"]:
+        for W in KERNEL_SHAPES["widths"]:
+            arrs = sprint_inputs(rng, R, B, W, smax, KERNEL_SHAPES["nt"][W])
+            yield (W if R == 512 else f"{W}/R{R}",
+                   [torch.tensor(a, device=dev) for a in arrs])
+
+
+def sprint_work(arrs, smax: int):
+    """(bytes, int32 ops) that one sprint launch needs: every input read
+    once and both outputs written once; ~10 int32 ops per cell of each live
+    entry's substep (row update and scan), min(m_reg, smax-1) substeps."""
+    R, B, W = arrs[0].shape
+    nbytes = sum(a.numel() * 4 for a in arrs) + (R * B * W + R * W) * 4
+    m_reg = arrs[5].long().clamp(0, smax - 1)
+    live = (arrs[6] != 0).long()
+    return nbytes, 10 * W * int((m_reg * live.sum(dim=1)).sum())
+
+
+def sprint_row(torch, arrs, smax: int, tag: str) -> dict:
+    """The sprint kernel against its plain version on one launch, tensor
+    for tensor; both timed with _call_ms; the bound from the launch's own
+    live entries and substeps. Raises if they differ."""
+    from ratatosk_tpu_torch.ops import sprint as SP
+    R, B, W = arrs[0].shape
+    kr, kb = SP.sprint_rows(*arrs, smax=smax)
+    torch.cuda.synchronize()
+    rr, rbt = SP.sprint_rows_ref(*arrs, smax=smax)
+    err = max(int((kr - rr).abs().max()), int((kb - rbt).abs().max()))
+    if not (torch.equal(kr, rr) and torch.equal(kb, rbt)):
+        raise AssertionError(f"sprint_rows kernel differs from its plain "
+                             f"version on {tag}: max abs err {err}")
+    ms = _call_ms(torch, lambda: SP.sprint_rows(*arrs, smax=smax), reps=10)
+    plain = _call_ms(torch, lambda: SP.sprint_rows_ref(*arrs, smax=smax),
+                     reps=3)
+    nbytes, ops = sprint_work(arrs, smax)
+    bound, by = _bound_ms(nbytes, ops)
+    moving = int(((arrs[6] != 0) & (arrs[5][:, None] > 0)).sum())
+    log(f"[kernel] sprint_rows {tag} R={R} B={B} W={W} smax={smax} "
+        f"({moving} of {R * B} entries advance): equal to sprint_rows_ref; "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
+        f"({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, R=R, W=W, moving=moving)
+
+
+def phase_kernels(torch, dev):
+    """The sprint kernel against its plain version on sprint_cases."""
+    return {key: sprint_row(torch, arrs, KERNEL_SHAPES["smax"], "random")
+            for key, arrs in sprint_cases(dev)}
 
 
 def _engine_pad(n: int, batch_regions: int) -> int:
@@ -826,31 +857,93 @@ def run_slice(device, glen: int, n_reads: int, workdir: str, smi: str = ""):
                 p2_path=p2_path)
 
 
-def phase_plain_vs_kernel(device, sl: dict, workdir: str, n: int = 16):
-    """Pass 1 on the first n long reads through each impl route: "auto"
-    (the fused kernels), "steps" (per-step torch with the sprint kernel)
-    and "torch" (plain): the FASTQ bytes must match. Returns (reads file,
-    FASTQ bytes, the sprint kernel's launches in the "steps" run)."""
-    import torch
-    from ratatosk_tpu_torch.correct.engine import Corrector
-    from ratatosk_tpu_torch.pipeline import correct_file
-    head = os.path.join(workdir, "head.fq")
+class SprintCapture:
+    """Watches the "steps" route's sprint kernel calls (correct/beam.py
+    reads its module's `sprint_rows` at each beam_search call): counts
+    them by band width and keeps a copy of the inputs of the first call at
+    band width W."""
+
+    def __init__(self, W: int = 257):
+        self.W, self.args, self.smax, self.widths = W, None, None, {}
+
+    def __enter__(self):
+        from ratatosk_tpu_torch.correct import beam as BM
+        self._orig = orig = BM.sprint_rows
+
+        def spy(*args, smax):
+            w = int(args[0].shape[2])
+            self.widths[w] = self.widths.get(w, 0) + 1
+            if self.args is None and w == self.W:
+                self.args, self.smax = [a.clone() for a in args], smax
+            return orig(*args, smax=smax)
+        BM.sprint_rows = spy
+        return self
+
+    def __exit__(self, *exc):
+        from ratatosk_tpu_torch.correct import beam as BM
+        BM.sprint_rows = self._orig
+
+
+def head_reads(sl: dict, workdir: str, n: int) -> str:
+    """The slice's first n long reads, as a FASTQ file."""
+    head = os.path.join(workdir, f"head{n}.fq")
     with open(sl["lr_path"]) as src, open(head, "w") as f:
         for _ in range(4 * n):
             f.write(src.readline())
+    return head
+
+
+def steps_pass(device, sl: dict, head: str, path: str, **opt_kw):
+    """Pass 1 on `head` through impl="steps" (with opt_kw changed in the
+    pass-1 options) under a SprintCapture, launch counts reset just before:
+    (FASTQ bytes, launch counts, the capture)."""
+    import dataclasses
+
+    import torch
+    from ratatosk_tpu_torch.correct.engine import Corrector
+    from ratatosk_tpu_torch.pipeline import correct_file
+    corr1 = sl["corr1"]
+    o1 = dataclasses.replace(sl["o1"], **opt_kw)
+    corr = Corrector(corr1.cdbg, corr1.colors, o1, device=device,
+                     impl="steps")
+    with SprintCapture() as cap:
+        _reset_launches()
+        torch.cuda.synchronize()
+        correct_file(corr, o1, [head], path, 1)
+        torch.cuda.synchronize()
+        counts = _launches(KERNELS)
+    return Path(path).read_bytes(), counts, cap
+
+
+def phase_plain_vs_kernel(device, sl: dict, workdir: str, n: int = 16):
+    """Pass 1 on the first n long reads through each impl route: "auto"
+    (the fused kernels), "steps" (per-step torch with the sprint kernel)
+    and "torch" (plain): the FASTQ bytes must match. Then the sprint
+    kernel against its plain version on the "steps" run's first launch at
+    the NT=256 band (W=257), as the engine formed it. Returns (reads file,
+    FASTQ bytes, the sprint kernel's launches in the "steps" run, that
+    launch's row)."""
+    import torch
+    from ratatosk_tpu_torch.correct.engine import Corrector
+    from ratatosk_tpu_torch.pipeline import correct_file
+    head = head_reads(sl, workdir, n)
     corr1, o1 = sl["corr1"], sl["o1"]
     outs, counts = {}, {}
     for impl in ("auto", "steps", "torch"):
-        corr = corr1 if impl == "auto" else Corrector(
-            corr1.cdbg, corr1.colors, o1, device=device, impl=impl)
-        _reset_launches()
-        torch.cuda.synchronize()
         t = time.time()
-        path = Path(workdir) / f"{impl}.fq"
-        correct_file(corr, o1, [head], str(path), 1)
-        torch.cuda.synchronize()
-        counts[impl] = _launches(KERNELS)
-        outs[impl] = path.read_bytes()
+        path = str(Path(workdir) / f"{impl}.fq")
+        if impl == "steps":
+            outs[impl], counts[impl], cap = steps_pass(device, sl, head,
+                                                       path)
+        else:
+            corr = corr1 if impl == "auto" else Corrector(
+                corr1.cdbg, corr1.colors, o1, device=device, impl=impl)
+            _reset_launches()
+            torch.cuda.synchronize()
+            correct_file(corr, o1, [head], path, 1)
+            torch.cuda.synchronize()
+            counts[impl] = _launches(KERNELS)
+            outs[impl] = Path(path).read_bytes()
         log(f"[plain] pass 1 on {n} reads, impl={impl!r}: "
             f"{time.time() - t:.1f}s; launches {counts[impl]}")
     if not outs["auto"] == outs["steps"] == outs["torch"]:
@@ -866,8 +959,43 @@ def phase_plain_vs_kernel(device, sl: dict, workdir: str, n: int = 16):
         raise AssertionError(f"a route launched another route's kernel: "
                              f"{counts}")
     log(f"[plain] FASTQ byte-identical across auto / steps / torch "
-        f"({len(outs['auto'])} bytes)")
-    return head, outs["auto"], counts["steps"]["sprint_rows"]
+        f"({len(outs['auto'])} bytes); sprint launches by band width "
+        f"{dict(sorted(cap.widths.items()))}")
+    if cap.args is None:
+        raise AssertionError("the steps route made no sprint launch at "
+                             "W=257")
+    row = sprint_row(torch, cap.args, cap.smax,
+                     "engine launch (first at NT=256)")
+    return head, outs["auto"], counts["steps"]["sprint_rows"], row
+
+
+def phase_wide_steps(device, sl: dict, workdir: str, head: str):
+    """[wide] impl="steps" at band_width=600: pass 1 on the [plain] reads
+    must equal impl="torch" at the same options byte for byte, with sprint
+    launches at a band past 512 columns."""
+    import dataclasses
+
+    from ratatosk_tpu_torch.correct.engine import Corrector
+    from ratatosk_tpu_torch.pipeline import correct_file
+    t = time.time()
+    got, counts, cap = steps_pass(device, sl, head,
+                                  os.path.join(workdir, "steps600.fq"),
+                                  band_width=600)
+    o1 = dataclasses.replace(sl["o1"], band_width=600)
+    corr = Corrector(sl["corr1"].cdbg, sl["corr1"].colors, o1,
+                     device=device, impl="torch")
+    path = os.path.join(workdir, "torch600.fq")
+    correct_file(corr, o1, [head], path, 1)
+    if got != Path(path).read_bytes():
+        raise AssertionError("[wide] impl='steps' at band_width=600 differs "
+                             "from impl='torch'")
+    if not any(w > 512 for w in cap.widths):
+        raise AssertionError(f"[wide] no sprint launch past 512 columns: "
+                             f"{cap.widths}")
+    log(f"[wide] impl='steps' at band_width=600: FASTQ byte-identical to "
+        f"impl='torch' ({len(got)} bytes, {time.time() - t:.1f}s); sprint "
+        f"launches by band width {dict(sorted(cap.widths.items()))}")
+    return counts["sprint_rows"]
 
 
 def phase_trace(sl: dict, workdir: str):
@@ -1788,8 +1916,11 @@ def main(argv=None) -> int:
         del batches
         add("warm", phase_warm(sl, workdir, dev, smi))
         if not args.mesh_only:
-            head, host_fastq, steps = phase_plain_vs_kernel(dev, sl, workdir)
+            head, host_fastq, steps, krows["engine NT=256"] = \
+                phase_plain_vs_kernel(dev, sl, workdir)
             add("plain_steps", {"sprint_rows": steps})
+            add("wide_steps", {"sprint_rows": phase_wide_steps(
+                dev, sl, workdir, head)})
             phase_trace(sl, workdir)
             dp_launches, prows = phase_devplan(dev, sl, workdir, head,
                                                host_fastq)

@@ -100,10 +100,11 @@ def bucket_lmax(nt: int, len_factor: float) -> int:
 def check_kernel_widths(opt: CorrectOpt, impl: str) -> None:
     """Raise ValueError, naming the option, when a launch of some bucket
     would ask a kernel of route `impl` (beam.IMPLS) on a CUDA device for a
-    wider band than it takes: the beam kernel's band (band_width) and the
-    finish kernel's (band_width, or the whole path row at NT=256, set by
-    weak_region_len_factor) on "auto", the sprint kernel's on "steps"; or
-    for longer paths than the finish kernel's shared memory holds
+    wider band than it takes: the beam kernel's band (band_width, up to
+    1,024 columns) and the finish kernel's (band_width, or the whole path
+    row at NT=256, set by weak_region_len_factor) on "auto", the sprint
+    kernel's (band_width, up to 1,024 columns) on "steps"; or for longer
+    paths than the finish kernel's shared memory holds
     (weak_region_len_factor above ~13). Each kernel's own refuses() is the
     test."""
     band_kernel = {"auto": beam_kernel, "steps": sprint}.get(impl)

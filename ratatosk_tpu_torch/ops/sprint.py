@@ -17,9 +17,11 @@ import torch
 
 from ratatosk_tpu_torch.ops import cuda_lib
 
-# the widest band the kernel takes (csrc/sprint.cu: sprint_rows_max_width;
-# cuda_lib checks the library's export against it once, at load)
-MAX_WIDTH = 512
+# the widest band the kernel takes, 32 columns a lane (csrc/sprint.cu:
+# sprint_rows_max_width; cuda_lib checks the library's export against it
+# once, at load): the beam kernel's cap, so the "steps" route takes every
+# band the "auto" route takes
+MAX_WIDTH = 1024
 
 BIG = 1 << 20
 

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time versions of the fused beam kernel, the finish kernel or the device
-planner's two kernels on one card, on the same launches.
+"""Time versions of the fused beam kernel, the finish kernel, the device
+planner's two kernels or the sprint kernel on one card, on the same
+launches.
 
-    python3 scripts/kernel_compare.py [--kernel beam|finish|runs|probe|plan]
+    python3 scripts/kernel_compare.py
+        [--kernel beam|finish|runs|probe|plan|sprint]
         [--split [NAME,...]] [--genome-bp N] [--long-reads N]
         [--order old,new,new,old]
         NAME=DIR [NAME=DIR ...]
@@ -41,6 +43,22 @@ only: a tree may be given twice, under two names) is built from an
 instrumented copy (written beside its library under `build/`) that records
 a CUDA event after each of its kernel launches: each call's time is then
 also printed per CUDA kernel, with the number of kernels a call runs.
+
+The sprint kernel (`--kernel sprint`): each tree's `csrc/sprint.cu` is
+built alone and driven through its own `ops/sprint.py`. The launches are
+chip_smoke.py's `[kernel]` sprint launches (`sprint_cases`: random band
+state at B=16, smax=8, W 257 / 192 / 336 / 1,024, R=512 and 128; at R=512
+each also with no entry advancing, a copy, and with every entry advancing
+smax-1 substeps; a width that a tree refuses is skipped for it), then the
+first launch at W=257 of a pass 1 through impl="steps" on the slice's
+first 16 reads, as the engine formed it. Per launch and tree, in the order given: the result
+against sprint_rows_ref (tensor for tensor), then the mean of 10 calls,
+each behind a device sleep, beside the launch's bound and the time of a
+clone() of its rows (and, once, the floor of such a time: a one-element
+add_ timed alike). With `--split` (all trees, or the named ones) a tree's
+source is built with SPRINT_CLOCKS defined: a source that reads clock64()
+under that flag then also gives its SM cycles by phase (window and btgt,
+row load, substeps, row store; summed over its warps) and per entry.
 Needs a CUDA device.
 """
 
@@ -73,7 +91,10 @@ PARTS = {("beam", 8): ("bookkeeping", "sprint", "cand_stats",
          ("finish", 6): ("setup", "match_words", "row_update", "row_min",
                          "snapshots", "endcols_gates_packing")}
 SOURCES = {"beam": ("beam.cu", "beam_kernel", "beam_search_launch"),
-           "finish": ("finish.cu", "finish_kernel", "finish_bundle_launch")}
+           "finish": ("finish.cu", "finish_kernel", "finish_bundle_launch"),
+           "sprint": ("sprint.cu", "sprint", "sprint_rows_launch")}
+# the phases of csrc/sprint.cu's clock64 counters (kClkParts), then entries
+SPRINT_PHASES = ("window_btgt", "row_load", "substeps", "row_store")
 PLAN_KINDS = {"runs": ("runs_kernel",), "probe": ("probe_kernel",),
               "plan": ("runs_kernel", "probe_kernel")}
 PLAN_ENTRIES = ("plan_runs_launch", "plan_probe_launch")
@@ -169,10 +190,12 @@ def ptxas_report(text: str) -> str:
     """Each kernel's registers and spill stores from nvcc -Xptxas -v."""
     out = []
     for block in text.split("Compiling entry function")[1:]:
-        fn = re.search(r"\d+([a-z_]+)E", block)
+        # a name, with the int of a one-int template (sprint_rows_kernel<C>)
+        fn = re.search(r"\d+([a-z_]+)(?:ILi(\d+)E)?E", block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
-        out.append(f"{fn.group(1) if fn else '?'} "
+        out.append(f"{fn.group(1) if fn else '?'}"
+                   f"{f'<{fn.group(2)}>' if fn and fn.group(2) else ''} "
                    f"{regs.group(1) if regs else '?'} registers "
                    f"{spill.group(1) if spill else '?'} B spilled")
     return "; ".join(out)
@@ -490,14 +513,141 @@ def run_finish(torch, lib, mod, b, res, want, reps=10):
     return ms, split
 
 
+def load_sprint_tree(name: str, tree: Path, clocks_on: bool):
+    """(library, wrapper module) of one tree's sprint kernel: its
+    csrc/sprint.cu built alone (with SPRINT_CLOCKS defined when clocks_on)
+    and its own ops/sprint.py bound to that library."""
+    from ratatosk_tpu_torch.ops import cuda_lib
+    text = (tree / "ratatosk_tpu_torch" / "csrc" / "sprint.cu").read_text()
+    if clocks_on:
+        text = "#define SPRINT_CLOCKS 1\n" + text
+    h = hashlib.sha256((text + " ".join(cuda_lib.NVCC_FLAGS))
+                       .encode()).hexdigest()[:16]
+    build = tree / "ratatosk_tpu_torch" / "build"
+    out = build / f"libsprint_{h}.so"
+    if not out.exists():
+        build.mkdir(parents=True, exist_ok=True)
+        src = build / f"sprint_{h}.cu"
+        src.write_text(text)
+        proc = subprocess.run([cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-o",
+                               str(out), str(src)], capture_output=True,
+                              text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+        print(f"{name}: ptxas " + ptxas_report(proc.stdout + proc.stderr),
+              flush=True)
+    lib = ctypes.CDLL(str(out))
+    for entry in ("sprint_rows_launch", "sprint_rows_max_width"):
+        res, args = cuda_lib.SIGNATURES[entry]
+        fn = getattr(lib, entry)
+        fn.restype, fn.argtypes = res, args
+    if hasattr(lib, "sprint_clock_read"):
+        lib.sprint_clock_read.restype = ctypes.c_int
+        lib.sprint_clock_read.argtypes = [ctypes.c_void_p]
+    spec = importlib.util.spec_from_file_location(
+        f"sprint_{name}", tree / "ratatosk_tpu_torch" / "ops" / "sprint.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.cuda_lib = _LibOf(lib)
+    if lib.sprint_rows_max_width() != mod.MAX_WIDTH:
+        raise RuntimeError(f"{name}: sprint_rows_max_width() "
+                           f"{lib.sprint_rows_max_width()}, MAX_WIDTH "
+                           f"{mod.MAX_WIDTH}")
+    return lib, mod
+
+
+def run_sprint(torch, CS, lib, mod, arrs, want, smax: int):
+    """(ms, SM cycles by phase and entries, or None) of one tree's sprint
+    kernel on one launch (chip_smoke._call_ms, 10 calls); raises unless it
+    equals sprint_rows_ref."""
+    got = mod.sprint_rows(*arrs, smax=smax)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{mod.__name__}.sprint_rows differs from "
+                             "sprint_rows_ref")
+    clk = getattr(lib, "sprint_clock_read", None)
+    cycles = (ctypes.c_ulonglong * (len(SPRINT_PHASES) + 1))()
+    if clk is not None and clk(cycles):
+        raise RuntimeError("sprint_clock_read failed")
+    ms = CS._call_ms(torch, lambda: mod.sprint_rows(*arrs, smax=smax),
+                     reps=10)
+    if clk is None:
+        return ms, None
+    if clk(cycles):
+        raise RuntimeError("sprint_clock_read failed")
+    return ms, list(cycles)
+
+
+def main_sprint(torch, CS, args, trees, order, dev, smi) -> int:
+    """--kernel sprint: each tree's sprint kernel on [kernel]'s random
+    launches and on one engine-formed launch, in turns."""
+    from ratatosk_tpu_torch.ops import sprint as SP
+    split = (set() if args.split is None else
+             set(trees) if args.split == "" else set(args.split.split(",")))
+    libs = {n: load_sprint_tree(n, Path(d).resolve(), n in split)
+            for n, d in trees.items()}
+    smax = CS.KERNEL_SHAPES["smax"]
+    cases = []
+    for key, arrs in CS.sprint_cases(dev):
+        cases.append((key, arrs))
+        if isinstance(key, int):
+            # the same launch with no entry advancing (a copy of the rows)
+            # and with every entry advancing smax-1 substeps
+            copy = [a.clone() for a in arrs]
+            copy[6].zero_()
+            full = [a.clone() for a in arrs]
+            full[5].fill_(smax - 1)
+            full[6].fill_(1)
+            cases += [(f"{key} all copy", copy), (f"{key} all advance", full)]
+    with tempfile.TemporaryDirectory(prefix="kernel_compare_") as workdir:
+        sl = CS.run_slice(dev, args.genome_bp, args.long_reads, workdir, smi)
+        head = CS.head_reads(sl, workdir, 16)
+        _, _, cap = CS.steps_pass(dev, sl, head, str(Path(workdir) /
+                                                     "steps.fq"))
+    cases.append(("engine NT=256", cap.args))
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    print(f"floor: a 4-byte add_ timed the same way, "
+          f"{CS._call_ms(torch, lambda: one.add_(1), reps=10):.4f} ms",
+          flush=True)
+    if cap.smax != smax:
+        raise RuntimeError(f"the engine's launch has smax={cap.smax}")
+    for key, arrs in cases:
+        R, B, W = arrs[0].shape
+        want = SP.sprint_rows_ref(*arrs, smax=smax)
+        bound, by = CS._bound_ms(*CS.sprint_work(arrs, smax))
+        moving = int(((arrs[6] != 0) & (arrs[5][:, None] > 0)).sum())
+        clone = CS._call_ms(torch, lambda: arrs[0].clone(), reps=10)
+        print(f"sprint {key}: R={R} B={B} W={W}, {moving} of {R * B} "
+              f"entries advance; bound {bound:.4f} ms ({by}); the rows' "
+              f"clone() {clone:.4f} ms", flush=True)
+        for tname in order:
+            lib, mod = libs[tname]
+            if mod.refuses(W):
+                print(f"  {tname}: refuses {mod.refuses(W)}", flush=True)
+                continue
+            ms, cyc = run_sprint(torch, CS, lib, mod, arrs, want, smax)
+            line = (f"  {tname}: {ms:.4f} ms ({bound / ms:.1%} of the "
+                    "bound); equal to sprint_rows_ref")
+            if cyc is not None:
+                tot = max(sum(cyc[:-1]), 1)
+                line += (f"; SM cycles by phase: " + ", ".join(
+                    f"{p} {100 * c / tot:.1f}%" for p, c in
+                    zip(SPRINT_PHASES, cyc)) +
+                    f"; {tot / max(cyc[-1], 1):.0f} a warp's entry")
+            print(line, flush=True)
+    print(smi, flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", choices=tuple(SOURCES) + tuple(PLAN_KINDS),
                     default="beam")
     ap.add_argument("--split", nargs="?", const="", default=None,
                     metavar="NAME,...",
-                    help="planner kernels: time each CUDA kernel of a call "
-                    "(of the named trees only, when names are given)")
+                    help="planner kernels: time each CUDA kernel of a call; "
+                    "sprint: SM cycles by phase (of the named trees only, "
+                    "when names are given)")
     ap.add_argument("--genome-bp", type=int, default=4_000_000)
     ap.add_argument("--long-reads", type=int, default=256)
     ap.add_argument("--order", default=None,
@@ -522,6 +672,8 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     if kind in PLAN_KINDS:
         return main_plan(torch, CS, args, trees, order, dev, smi)
+    if kind == "sprint":
+        return main_sprint(torch, CS, args, trees, order, dev, smi)
     libs = {n: load_tree(kind, n, Path(d).resolve()) for n, d in trees.items()}
     with tempfile.TemporaryDirectory(prefix="kernel_compare_") as workdir:
         sl = CS.run_slice(dev, args.genome_bp, args.long_reads, workdir, smi)

@@ -246,7 +246,7 @@ def test_kernel_width_caps_match_the_library(cuda_device):
     lib = cuda_lib.library()
     assert lib.beam_search_max_width() == beam_kernel.MAX_WIDTH == 1024
     assert lib.finish_bundle_max_width() == finish_kernel.MAX_WIDTH == 8192
-    assert lib.sprint_rows_max_width() == sprint.MAX_WIDTH
+    assert lib.sprint_rows_max_width() == sprint.MAX_WIDTH == 1024
 
 
 @pytest.mark.cuda
@@ -273,6 +273,45 @@ def test_wide_options_run_through_both_kernels_on_card(cuda_device, opt_kw):
     for a, b in zip(got, cpu.correct_batch(reads)):
         np.testing.assert_array_equal(a.codes, b.codes)
         np.testing.assert_array_equal(a.qual, b.qual)
+
+
+@pytest.mark.cuda
+def test_steps_route_takes_a_wide_band_on_card(cuda_device):
+    """Corrector(impl="steps", band_width=600) on the card launches the
+    sprint kernel at a band past 512 columns and corrects the same reads
+    as impl="torch", byte for byte."""
+    from ratatosk_tpu_torch.correct import beam as beam_mod
+    from ratatosk_tpu_torch.correct.engine import Corrector
+    from ratatosk_tpu_torch.ops import sprint
+    opt = CorrectOpt(small_k=21, k=63, beam_width=8, batch_regions=32,
+                     band_width=600)
+    genome, corr = testing.build_toy_corrector(seed=5, glen=30000, k=21,
+                                               coverage=25.0, opt=opt,
+                                               device=cuda_device)
+    rng = np.random.default_rng(5)
+    reads = [testing.noisy_read(rng, genome, 3000 * i, 2500, err=0.15)[0]
+             for i in range(4)]
+    widths = []
+    orig = beam_mod.sprint_rows
+
+    def spy(*args, smax):
+        widths.append(args[0].shape[2])
+        return orig(*args, smax=smax)
+
+    steps, plain = (Corrector(corr.cdbg, corr.colors, opt,
+                              device=cuda_device, impl=impl)
+                    for impl in ("steps", "torch"))
+    before = sprint.sprint_rows.launches
+    beam_mod.sprint_rows = spy
+    try:
+        got = steps.correct_batch(reads)
+    finally:
+        beam_mod.sprint_rows = orig
+    assert sprint.sprint_rows.launches > before
+    assert max(widths) == 600
+    for a, b in zip(got, plain.correct_batch(reads)):
+        assert a.codes.tobytes() == b.codes.tobytes()
+        assert a.qual.tobytes() == b.qual.tobytes()
 
 
 @pytest.mark.cuda
@@ -426,7 +465,7 @@ def test_finish_launch_passes_the_tables_in_order_and_raises_on_error():
 
 @pytest.mark.parametrize("opt_kw,impl,match", [
     (dict(band_width=1100), "auto", "band_width=1100"),
-    (dict(band_width=600), "steps", "band_width=600"),
+    (dict(band_width=1100), "steps", "band_width=1100"),
     (dict(weak_region_len_factor=16.0), "auto", "finish band"),
     (dict(weak_region_len_factor=14.0), "auto", "shared memory"),
 ])
@@ -464,9 +503,14 @@ def test_each_kernel_refuses_one_column_past_its_cap(module, args):
     assert f"{cap + 1}-column" in mod.refuses(*args(cap + 1))
 
 
-@pytest.mark.parametrize("opt_kw", [dict(), dict(band_width=600),
-                                    dict(band_width=1024),
-                                    dict(weak_region_len_factor=0.6)])
-def test_kernel_widths_up_to_the_caps_are_taken(opt_kw):
+@pytest.mark.parametrize("opt_kw,impl", [
+    pytest.param(dict(), "auto", id="opt_kw0"),
+    pytest.param(dict(band_width=600), "auto", id="opt_kw1"),
+    pytest.param(dict(band_width=1024), "auto", id="opt_kw2"),
+    pytest.param(dict(weak_region_len_factor=0.6), "auto", id="opt_kw3"),
+    pytest.param(dict(band_width=600), "steps", id="steps-600"),
+    pytest.param(dict(band_width=1024), "steps", id="steps-1024"),
+])
+def test_kernel_widths_up_to_the_caps_are_taken(opt_kw, impl):
     from ratatosk_tpu_torch.correct.engine import check_kernel_widths
-    check_kernel_widths(CorrectOpt(**opt_kw), "auto")
+    check_kernel_widths(CorrectOpt(**opt_kw), impl)

@@ -55,6 +55,9 @@ def _torch(arrs, device):
     (5, 4, 37, 4),     # uneven region blocks: the JAX kernel's pad path
     (8, 4, 257, 8),    # the exact NT=256 bucket's band
     (6, 4, 192, 8),    # the banded NT=2048 bucket's band
+    (3, 2, 513, 4),    # one column past the old 512-column cap
+    (2, 4, 1024, 8),   # the widest band the kernel takes
+    (2, 33, 40, 8),    # more entries than a warp has lanes
 ])
 def test_sprint_ref_matches_oracle_and_jax(R, B, W, block_r):
     import jax.numpy as jnp
@@ -234,6 +237,94 @@ def test_sprint_kernel_matches_ref_on_card(cuda_device, W):
     rr, rbt = SP.sprint_rows_ref(*arrs, smax=smax)
     assert torch.equal(kr, rr)
     assert torch.equal(kb, rbt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 128, 512])
+@pytest.mark.parametrize("B", [1, 16, 33])
+@pytest.mark.parametrize("W", [1, 32, 33, 257, 512, 513, 1024])
+def test_sprint_kernel_shapes_on_card(cuda_device, W, B, R):
+    """Every lane count (W=1: one lane, 32: one column a lane, 33: two),
+    the old cap and one past it, the widest band; one entry, a warp's
+    worth and more; one region and the engine's paddings."""
+    smax = 8
+    arrs = _torch(_inputs(W * 1000 + B * 10 + R, R, B, W, smax, ws_hi=400),
+                  cuda_device)
+    kr, kb = SP.sprint_rows(*arrs, smax=smax)
+    torch.cuda.synchronize()
+    rr, rbt = SP.sprint_rows_ref(*arrs, smax=smax)
+    assert torch.equal(kr, rr)
+    assert torch.equal(kb, rbt)
+
+
+def _edge_inputs(kind, smax, R=64, B=16, W=257):
+    """Band state with every entry dead, every m_reg 0, or every window
+    starting at column 0 (the DP's column 0 set in each substep); or rows
+    that are no DP rows: up to +-2^27 beside BIG with windows before
+    column 0 (no value wraps), or from BIG up to 2^31 - 1 (values wrap)."""
+    arrs = list(_inputs(len(kind) * smax, R, B, W, smax, ws_hi=400))
+    if kind == "all_dead":
+        arrs[6][:] = 0
+    elif kind == "no_substeps":
+        arrs[5][:] = 0
+    elif kind == "window_at_zero":
+        arrs[4] -= arrs[4][:, :1]
+        arrs[5][:] = smax - 1
+        arrs[6][:] = 1
+    elif kind == "large_rows":
+        rng = np.random.default_rng(smax)
+        arrs[0] = rng.integers(-2**27, 2**27, arrs[0].shape,
+                               dtype=np.int64).astype(np.int32)
+        arrs[0][:, :, ::3] = SP.BIG
+        arrs[7] = rng.integers(-2**27, 2**27, arrs[7].shape,
+                               dtype=np.int64).astype(np.int32)
+        arrs[4] -= 30
+    elif kind == "big_rows":
+        rng = np.random.default_rng(smax)
+        arrs[0] = rng.integers(SP.BIG - 3, 2**31 - 1, arrs[0].shape,
+                               dtype=np.int64).astype(np.int32)
+        arrs[0][:, :, ::7] = SP.BIG
+    return arrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smax", [2, 8])
+@pytest.mark.parametrize("kind", ["all_dead", "no_substeps",
+                                  "window_at_zero", "large_rows",
+                                  "big_rows"])
+def test_sprint_kernel_edge_batches_on_card(cuda_device, kind, smax):
+    arrs = _torch(_edge_inputs(kind, smax), cuda_device)
+    kr, kb = SP.sprint_rows(*arrs, smax=smax)
+    torch.cuda.synchronize()
+    rr, rbt = SP.sprint_rows_ref(*arrs, smax=smax)
+    assert torch.equal(kr, rr)
+    assert torch.equal(kb, rbt)
+    if kind in ("all_dead", "no_substeps"):
+        assert torch.equal(kr, arrs[0])
+
+
+@pytest.mark.parametrize("kind", ["all_dead", "no_substeps",
+                                  "window_at_zero", "large_rows",
+                                  "big_rows"])
+def test_sprint_edge_batches_match_jax(kind):
+    """The card's edge batches, on the CPU: the plain version against the
+    JAX kernel in interpret mode (int32 throughout, as both packages wrap;
+    the NumPy oracle widens to int64 on rows near 2^31). Windows that
+    start before column 0 (large_rows) never occur in a beam search, and
+    there the JAX kernel parts from its own NumPy oracle: that case is
+    held to the oracle."""
+    import jax.numpy as jnp
+    from ratatosk_tpu.ops.sprint_pallas import sprint_rows as jax_sprint_rows
+    from tests import test_sprint_pallas as ORACLE
+    arrs = _edge_inputs(kind, 8, R=4, B=3, W=40)
+    got_r, got_b = SP.sprint_rows(*_torch(arrs, "cpu"), smax=8)
+    if kind == "large_rows":
+        want_r, want_b = ORACLE._ref_sprint(*arrs, 8)
+    else:
+        want_r, want_b = jax_sprint_rows(*map(jnp.asarray, arrs), smax=8,
+                                         interpret=True, block_r=4)
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
 
 
 @pytest.mark.cuda
