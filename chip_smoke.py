@@ -114,10 +114,17 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      --num-processes 2 --process-id i -- <the [cli] flags>`. The final
      FASTQ must equal the [cli quarter] run's byte for byte, both index .npz
      files exist, and each process must launch both kernels.
+ 12. [bench] bench_torch.py (the port's bench.py) at 1 Mbp and 64 long
+     reads with --repeats 2, once with --plan host and once with --plan
+     device, each in its own process on cuda:0: each must exit 0 with a
+     JSON last line whose passes launched the kernels of their path (the
+     planner's two with --plan device), and the two runs' FASTQ sha256 must
+     be equal; both runs' bases/s are printed with the card's name.
 Launch counts are reset just before each path (the slice, [warm], each
 [plain] route, [wide]'s "steps" run, the 16-read planner run, the mesh and sharded runs, the two
-CLI runs, the -g run; each [dist] process counts its own) and read just
-after; the kernels' record sums them by path.
+CLI runs, the -g run; each [dist] process counts its own, each [bench]
+process its timed passes) and read just after; the kernels' record sums
+them by path.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -1002,10 +1009,11 @@ def phase_trace(sl: dict, workdir: str):
     """Pass 1 of the slice once more under torch.profiler: the device busy
     share (the union of the kernels' intervals over the pass's wall time),
     the pass seconds, the plan / launch / finish shares and the kernels that
-    take the device time. The FASTQ must equal the slice's."""
+    take the device time (bench_torch.device_busy). The FASTQ must equal the
+    slice's."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from bench_torch import device_busy
     from ratatosk_tpu_torch.correct.engine import Corrector
     from ratatosk_tpu_torch.pipeline import correct_file
     c1, o1 = sl["corr1"], sl["o1"]
@@ -1021,32 +1029,17 @@ def phase_trace(sl: dict, workdir: str):
     if Path(out).read_bytes() != Path(sl["p1_path"]).read_bytes():
         raise AssertionError("[trace] the traced pass 1 differs from the "
                              "slice's")
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, hi, by_name = 0.0, None, {}
-    for a, b in spans:
-        if hi is None or a > hi:
-            busy += b - a
-            hi = b
-        elif b > hi:
-            busy += b - hi
-            hi = b
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    share = busy / (wall * 1e6)
+    busy = device_busy(prof, wall)
     tm = corr.timers
     log(f"[trace] pass 1 traced (torch.profiler, CPU+CUDA): {wall:.2f}s "
         f"wall; plan {tm['plan']:.2f}s ({tm['plan'] / wall:.1%}), launch "
         f"{tm['launch']:.2f}s ({tm['launch'] / wall:.1%}), finish "
-        f"{tm['finish']:.2f}s ({tm['finish'] / wall:.1%}); {len(spans)} "
-        f"device ops, device busy {busy / 1e6:.3f}s = {share:.2%} of the "
-        f"wall; device time by kernel: "
-        + "; ".join(f"{n[:60]} {us / 1e3:.1f} ms" for n, us in top))
-    if not spans:
-        raise AssertionError("[trace] the profiler saw no device op")
-    return dict(wall=wall, busy_share=share, timers=dict(tm))
+        f"{tm['finish']:.2f}s ({tm['finish'] / wall:.1%}); "
+        f"{busy['device_ops']} device ops, device busy {busy['busy_s']:.3f}s "
+        f"= {busy['busy_share']:.2%} of the wall; device time by kernel: "
+        + "; ".join(f"{n[:60]} {ms:.1f} ms"
+                    for n, ms in busy["top_kernels_ms"]))
+    return dict(wall=wall, busy_share=busy["busy_share"], timers=dict(tm))
 
 
 def _first_batch(path: str, batch_bp: int):
@@ -1854,6 +1847,54 @@ def quarter_data(workdir: str, glen: int, n_reads: int) -> dict:
     return dict(truth=truth, lr_path=lr_path, sreads=sreads, bases=total)
 
 
+BENCH_ARGS = ("1e6", "64", "--repeats", "2")
+
+
+def phase_bench(smi: str) -> dict:
+    """bench_torch.py at 1 Mbp and 64 long reads, two runs in one process,
+    with each planner, as its own process on cuda:0: each must exit 0 with
+    a JSON last line, launch the kernels of its path in both passes, and
+    write the same FASTQ bytes as the other. Returns the launches of each
+    run's median run, by path (bench_host, bench_device)."""
+    out, launches = {}, {}
+    for plan in ("host", "device"):
+        t = time.time()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "bench_torch.py"), *BENCH_ARGS,
+             "--plan", plan], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        wall = time.time() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"[bench] --plan {plan} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        need = PATH_KERNELS + (PLAN_KERNELS if plan == "device" else ())
+        counts = {n: 0 for n in need}
+        for p in ("pass1", "pass2"):
+            got = res["passes"][p]["launches"]
+            _require_launches(f"bench {plan} {p}",
+                              {n: got[n] for n in need})
+            for n in need:
+                counts[n] += got[n]
+        launches[f"bench_{plan}"] = counts
+        out[plan] = res
+        p1, p2 = res["passes"]["pass1"], res["passes"]["pass2"]
+        log(f"[bench] bench_torch.py {' '.join(BENCH_ARGS)} --plan {plan}: "
+            f"{wall:.1f}s; runs " + ", ".join(
+                f"{b:.1f}" for b in res["runs_bases_per_s"])
+            + f" bases/s (median {res['value']:.1f}) on {smi}; passes "
+            f"{res['pass1_s']:.2f} / {res['pass2_s']:.2f}s, warm-up "
+            f"{res['warmup_s']['pass1']:.1f} / {res['warmup_s']['pass2']:.1f}s"
+            f"; n_fallback {p1['n_fallback']} / {p2['n_fallback']}; "
+            f"error raw {res['error']['raw']:.4f}, pass 2 "
+            f"{res['error']['pass2']:.4f}; launches {counts}")
+    if out["host"]["fastq_sha256"] != out["device"]["fastq_sha256"]:
+        raise AssertionError("[bench] the two planners' FASTQ differ: "
+                             f"{out['host']['fastq_sha256']} / "
+                             f"{out['device']['fastq_sha256']}")
+    return launches
+
+
 def phase_rest(sl: dict, workdir: str, smi: str, launches: dict,
                glen: int, n_reads: int) -> None:
     """[cli] on the slice's data; [index] and [dist] on a quarter of its
@@ -1861,7 +1902,7 @@ def phase_rest(sl: dict, workdir: str, smi: str, launches: dict,
     ([cli quarter]), which [dist] is held to: their host steps, index
     builds above all, scale with the genome, and with all three on the
     slice's data the script took 981.4 s of its 1,200 (NVIDIA H100 80GB
-    HBM3). Adds their launches."""
+    HBM3); then [bench]. Adds their launches."""
     short_fa = os.path.join(workdir, "short.fa")
     t = time.time()
     _write_short_fasta(sl.pop("sreads"), short_fa)
@@ -1878,6 +1919,7 @@ def phase_rest(sl: dict, workdir: str, smi: str, launches: dict,
     launches["index_g"] = phase_index(q, workdir, half_fa,
                                       qc["out"])["launches"]
     launches["dist"] = phase_dist(q, workdir, q_fa, qc["out"])
+    launches.update(phase_bench(smi))
 
 
 def main(argv=None) -> int:
