@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                      # full size, as documented below
     python3 chip_smoke.py --genome-bp 300000 --long-reads 16   # a quick run
-    python3 chip_smoke.py --mesh-only   # phases 1-4b, 9 and 10 only: the
+    python3 chip_smoke.py --mesh-only   # phases 1-4b, 9, 10, [cli quarter],
+                                        # [cli default] and 11 only: the
                                         # check on a host with several cards
 
 Phases, one line each (any failure raises, and the script exits non-zero):
@@ -86,8 +87,14 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      launch, every read come out in order, and the sampled error fall below
      a fifth of the raw error. [cli quarter]: the same command on a
      quarter of the slice's genome and long reads (1 Mbp and 64 reads by
-     default, simulated alike), the run that [index] and [dist] are held to
-     (their host steps, index builds above all, scale with the genome);
+     default, simulated alike), the run that [cli default], [index] and
+     [dist] are held to (their host steps, index builds above all, scale
+     with the genome). [cli default]: the same command on the quarter
+     without --devices, so on the CLI's default mesh over every visible
+     card (one card: --devices 1's path); both FASTQ files must equal [cli
+     quarter]'s byte for byte, and on a mesh every card must launch both
+     kernels and every slot of every launch read its launch's T (as in
+     [mesh]);
   8. [index] on that quarter: `index -1` on the first half of its short
      reads (20x), the index's load and save timed on their own, then
      `correct -g <prefix>.index.k31.npz -1` on all its long reads: the files
@@ -101,17 +108,22 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      one card). Both FASTQ files must equal the slice's byte for byte, and
      every slot must launch both kernels. The slots of a launch agree on
      its step count T (parallel.mesh.StepCount): the T of each launch is
-     printed, and every slot's launch 2 must have read its launch's T;
+     printed, and every slot's launch 2 must have read its launch's T.
+     Then both passes once more on the same mesh with plan_on_device=True
+     (the device planner on slot 0's card): byte-identical to the slice,
+     both planner kernels launched, each launch's T checked alike;
  10. [sharded] ShardedKmerIndex over the same slots on the slice's k=31 and
      k=63 indexes: one read batch's canonical k-mers, absent keys with bit
      63 set and the all-ones key must get the host index's answers
      (KeyArray.find), timed per batch; then both passes with
      shard_index_min_keys=0 (anchor lookups through the sharded index),
      byte-identical to the slice, each launch's T checked as in [mesh];
- 11. [dist] the multi-host launcher in two processes on the [cli quarter]
-     inputs, both on cuda:0, joined by gloo on a free localhost port:
-     `python -m ratatosk_tpu_torch.distributed_correct --coordinator ...
-     --num-processes 2 --process-id i -- <the [cli] flags>`. The final
+ 11. [dist] the multi-host launcher on the [cli quarter] inputs, joined
+     by gloo on a free localhost port: `python -m
+     ratatosk_tpu_torch.distributed_correct --coordinator ...
+     --num-processes N --process-id i -- <the [cli] flags>`, one process
+     per card with two or more cards (process i with
+     CUDA_VISIBLE_DEVICES=i), else two processes on cuda:0. The final
      FASTQ must equal the [cli quarter] run's byte for byte, both index .npz
      files exist, and each process must launch both kernels.
  12. [bench] bench_torch.py (the port's bench.py) at 1 Mbp and 64 long
@@ -121,8 +133,9 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      planner's two with --plan device), and the two runs' FASTQ sha256 must
      be equal; both runs' bases/s are printed with the card's name.
 Launch counts are reset just before each path (the slice, [warm], each
-[plain] route, [wide]'s "steps" run, the 16-read planner run, the mesh and sharded runs, the two
-CLI runs, the -g run; each [dist] process counts its own, each [bench]
+[plain] route, [wide]'s "steps" run, the 16-read planner run, the mesh,
+mesh devplan and sharded runs, the three CLI runs, the -g run; each [dist]
+process counts its own, each [bench]
 process its timed passes) and read just after; the kernels' record sums
 them by path.
 The line before the last is the kernels' JSON record; the last line is
@@ -1402,12 +1415,13 @@ def make_slots(torch):
 
 
 def _two_passes(tag: str, sl: dict, workdir: str, place: dict, mem=None,
-                **opt_kw):
+                names=PATH_KERNELS, **opt_kw):
     """Both passes of the slice through fresh Correctors on the slice's
     graphs, placed by `place` (device=... or mesh=...); the FASTQ files must
-    equal the slice's. Returns (launches, pass seconds). A dict `mem` gets
-    each pass's peak allocated and reserved memory of the current device
-    (peaks reset before the pass) and the process's peak RSS after it."""
+    equal the slice's, and every kernel of `names` must launch. Returns
+    (launches, pass seconds). A dict `mem` gets each pass's peak allocated
+    and reserved memory of the current device (peaks reset before the pass)
+    and the process's peak RSS after it."""
     import dataclasses
     import resource
     import torch
@@ -1441,7 +1455,7 @@ def _two_passes(tag: str, sl: dict, workdir: str, place: dict, mem=None,
         if Path(out).read_bytes() != Path(ref).read_bytes():
             raise AssertionError(f"[{tag}] pass-{p} FASTQ differs from the "
                                  "single-device slice's")
-    launches = _launches()
+    launches = _launches(names)
     _require_launches(tag, launches)
     return launches, secs
 
@@ -1531,13 +1545,14 @@ class LaunchSteps:
                 sum(any(o < T for o, T in s) for s in launches.values()))
 
 
-def _mesh_passes(tag: str, sl: dict, workdir: str, mesh, **opt_kw):
+def _mesh_passes(tag: str, sl: dict, workdir: str, mesh,
+                 names=PATH_KERNELS, **opt_kw):
     """Both passes of the slice on `mesh`, against the slice; every slot of
     every launch must run launch 2 with its launch's T. Returns (launches,
     per-slot launches, pass seconds)."""
     with LaunchSteps() as steps:
         launches, secs = _two_passes(tag, sl, workdir, dict(mesh=mesh),
-                                     **opt_kw)
+                                     names=names, **opt_kw)
     Ts, below = steps.check(tag)
     log(f"[{tag}] launch-wide step count T of the {len(Ts)} launches: {Ts}; "
         f"every slot's launch 2 read its launch's T; in {below} launches a "
@@ -1552,14 +1567,23 @@ def _mesh_passes(tag: str, sl: dict, workdir: str, mesh, **opt_kw):
 
 
 def phase_mesh(sl: dict, workdir: str, mesh, how: str):
-    """Both passes through Corrector(mesh=...), against the slice."""
+    """Both passes through Corrector(mesh=...), against the slice, with the
+    host planner and then with plan_on_device=True (the device planner on
+    slot 0's card). Returns the launches of each run, by path."""
     launches, per_slot, secs = _mesh_passes("mesh", sl, workdir, mesh)
     w = sl["warm"]
     log(f"[mesh] {mesh} ({how}): pass 1 {secs[1]:.2f}s (one device, warm "
         f"{w[1]:.2f}s), pass 2 {secs[2]:.2f}s (one device, warm "
         f"{w[2]:.2f}s); both FASTQ files byte-identical to the "
         f"slice's; kernel launches per slot {per_slot} ({launches} in all)")
-    return launches
+    dp_launches, per_slot, secs = _mesh_passes(
+        "mesh devplan", sl, workdir, mesh, names=PATH_KERNELS + PLAN_KERNELS,
+        plan_on_device=True)
+    log(f"[mesh] {mesh} with plan_on_device=True (the planner's kernels on "
+        f"{mesh.devices[0]}): pass 1 {secs[1]:.2f}s, pass 2 {secs[2]:.2f}s; "
+        f"both FASTQ files byte-identical to the slice's; kernel launches "
+        f"per slot {per_slot} ({dp_launches} in all)")
+    return {"mesh": launches, "mesh_devplan": dp_launches}
 
 
 def _batch_queries(reads, k, rng):
@@ -1639,9 +1663,9 @@ _DIST_RUNNER = r"""
 import sys
 from ratatosk_tpu_torch import distributed_correct
 from ratatosk_tpu_torch.ops import beam_kernel, finish_kernel
-pid, port = sys.argv[1], sys.argv[2]
-argv = ["--coordinator", f"localhost:{port}", "--num-processes", "2",
-        "--process-id", pid, "--"] + sys.argv[3:]
+pid, n, port = sys.argv[1], sys.argv[2], sys.argv[3]
+argv = ["--coordinator", f"localhost:{port}", "--num-processes", n,
+        "--process-id", pid, "--"] + sys.argv[4:]
 assert distributed_correct.main(argv, device="cuda") == 0
 print("launches", beam_kernel.fused_beam_search.launches,
       finish_kernel.finish_bundle_kernel.launches, flush=True)
@@ -1656,23 +1680,32 @@ def _free_port() -> int:
 
 
 def phase_dist(sl: dict, workdir: str, short_fa: str, cli_out: str):
-    """Two processes through the multi-host launcher on the inputs of the
-    CLI run that wrote `cli_out`, which its FASTQ must equal."""
+    """The multi-host launcher on the inputs of the CLI run that wrote
+    `cli_out`, which its FASTQ must equal: one process per card with two or
+    more cards (process i sees card i alone: CUDA_VISIBLE_DEVICES=i), else
+    two processes on cuda:0."""
+    import torch
     from ratatosk_tpu_torch.graph import io as GIO
     out = os.path.join(workdir, "dist")
     argv = ["-s", short_fa, "-l", sl["lr_path"], "-o", out, "-c", "2",
             "--devices", "1", "-v"]
+    cards = torch.cuda.device_count()
+    n = cards if cards >= 2 else 2
+    how = (f"{n} processes, one card each (CUDA_VISIBLE_DEVICES=i)"
+           if cards >= 2 else "2 processes on cuda:0")
     port = _free_port()
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
     procs, errs = [], []
     t = time.time()
     try:
-        for pid in range(2):
+        for pid in range(n):
+            env = dict(os.environ, PYTHONPATH=str(ROOT))
+            if cards >= 2:
+                env["CUDA_VISIBLE_DEVICES"] = str(pid)
             trace = os.path.join(workdir, f"dist.trace{pid}.jsonl")
             errs.append(open(os.path.join(workdir, f"dist.err{pid}"), "w+"))
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", _DIST_RUNNER, str(pid), str(port),
-                 *argv, "--trace-json", trace],
+                [sys.executable, "-c", _DIST_RUNNER, str(pid), str(n),
+                 str(port), *argv, "--trace-json", trace],
                 cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=errs[-1],
                 text=True))
         outs = [p.communicate(timeout=900)[0] for p in procs]
@@ -1700,7 +1733,7 @@ def phase_dist(sl: dict, workdir: str, short_fa: str, cli_out: str):
         if not os.path.getsize(GIO.index_path(out, k)):
             raise AssertionError(f"[dist] {GIO.index_path(out, k)} is empty")
     steps = []
-    for pid in range(2):
+    for pid in range(n):
         evs = _trace(os.path.join(workdir, f"dist.trace{pid}.jsonl"))
         passes = {e["pass_no"]: e["secs"] for e in evs
                   if e["ev"] == "pass_done"}
@@ -1708,7 +1741,7 @@ def phase_dist(sl: dict, workdir: str, short_fa: str, cli_out: str):
         steps.append(f"process {pid}: pass 1 {passes[1]:.1f}s, pass 2 "
                      f"{passes[2]:.1f}s, SNP detection "
                      f"{' / '.join(f'{x:.1f}' for x in snp)}s")
-    log(f"[dist] 2 processes on cuda:0 (gloo, localhost:{port}): "
+    log(f"[dist] {how} (gloo, localhost:{port}): "
         f"{wall:.1f}s wall; {'; '.join(steps)}; final FASTQ byte-identical "
         f"to the single-process CLI run's; index .npz k31/k63 written; kernel launches "
         f"{per_proc}")
@@ -1732,9 +1765,10 @@ def _trace(path: str) -> list:
 
 
 def phase_cli(sl: dict, workdir: str, short_fa: str, smi: str,
-              name: str = "cli"):
-    """The user's `correct` command on the data of `sl`; `name` tags its
-    lines and names its files."""
+              name: str = "cli", devices=("--devices", "1")):
+    """The user's `correct` command on the data of `sl` (with `devices`,
+    the --devices flag or none); `name` tags its lines and names its
+    files."""
     import torch
     from ratatosk_tpu_torch import cli
     truth, n_reads = sl["truth"], len(sl["truth"])
@@ -1743,7 +1777,7 @@ def phase_cli(sl: dict, workdir: str, short_fa: str, smi: str,
     _reset_launches()
     t = time.time()
     cli.main(["correct", "-s", short_fa, "-l", sl["lr_path"], "-o", out,
-              "-c", "2", "--devices", "1", "-v", "--trace-json", trace],
+              "-c", "2", *devices, "-v", "--trace-json", trace],
              device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t
@@ -1758,8 +1792,8 @@ def phase_cli(sl: dict, workdir: str, short_fa: str, smi: str,
     raw = _raw_error(truth)
     dt = passes[1]["secs"] + passes[2]["secs"]
     steps = (sum(e["secs"] for e in snp + rescue) + dt)
-    log(f"[{name}] correct -c 2 --devices 1 (k 31/63, SNPs and edge rescue "
-        f"on): {wall:.1f}s wall; edge rescue {rescue[0]['edges']} edges in "
+    log(f"[{name}] correct -c 2 {' '.join(devices)} (k 31/63, SNPs and edge "
+        f"rescue on): {wall:.1f}s wall; edge rescue {rescue[0]['edges']} edges in "
         f"{rescue[0]['secs']:.1f}s; SNP detection "
         + ", ".join(f"pass {i + 1} {e['sites']} sites in {e['secs']:.1f}s"
                     for i, e in enumerate(snp))
@@ -1773,6 +1807,46 @@ def phase_cli(sl: dict, workdir: str, short_fa: str, smi: str,
     if not cor < raw / 5:
         raise AssertionError(f"[{name}] error {cor:.4f} is not below raw/5")
     return dict(launches=launches, out=out)
+
+
+def phase_cli_default(sl: dict, workdir: str, short_fa: str, smi: str,
+                      ref_out: str) -> dict:
+    """[cli default]: the `correct` command on the data of `sl` without
+    --devices, so on the CLI's default mesh over every visible card (one
+    card: --devices 1's path). Both FASTQ files must equal those of the
+    run that wrote `ref_out` ([cli quarter], --devices 1) byte for byte;
+    on a mesh every card must launch both kernels and every slot of every
+    launch run launch 2 with its launch's T."""
+    import contextlib
+    from ratatosk_tpu_torch.config import CorrectOpt
+    from ratatosk_tpu_torch.pipeline import local_mesh
+    mesh = local_mesh(CorrectOpt(), "cuda")
+    with (LaunchSteps() if mesh is not None
+          else contextlib.nullcontext()) as steps:
+        res = phase_cli(sl, workdir, short_fa, smi, name="cli default",
+                        devices=())
+    for ext in (".2.fastq", ".fastq"):
+        if Path(res["out"] + ext).read_bytes() != \
+                Path(ref_out + ext).read_bytes():
+            raise AssertionError(f"[cli default] {ext} differs from the "
+                                 "--devices 1 run's")
+    how = "no mesh: one card, --devices 1's path"
+    if mesh is not None:
+        Ts, below = steps.check("cli default")
+        w = _wrappers()
+        per_card = {n: list(w[n].launches_by_stream.values())
+                    for n in PATH_KERNELS}
+        if any(len(v) != mesh.size or min(v) <= 0
+               for v in per_card.values()):
+            raise AssertionError(f"[cli default] not every card of {mesh} "
+                                 f"launched both kernels: {per_card}")
+        how = (f"kernel launches per card {per_card}; {len(Ts)} launches, "
+               f"each one's T read by every slot ({below} with a slot's own "
+               "count below it)")
+    log(f"[cli default] the CLI's default --devices 0 ran on "
+        f"{mesh or 'cuda:0'} ({how}); both FASTQ files byte-identical to "
+        "[cli quarter]'s (--devices 1)")
+    return res
 
 
 def phase_index(sl: dict, workdir: str, half_fa: str, cli_out: str):
@@ -1895,14 +1969,32 @@ def phase_bench(smi: str) -> dict:
     return launches
 
 
+def phase_quarter(workdir: str, smi: str, launches: dict, glen: int,
+                  n_reads: int, index: bool) -> None:
+    """On a quarter of the slice's genome and long reads: [cli quarter]
+    (--devices 1), which [cli default], [index] (when `index`) and [dist]
+    are held to: their host steps, index builds above all, scale with the
+    genome, and with [cli], [index] and [dist] on the slice's data the
+    script took 981.4 s of its 1,200 (NVIDIA H100 80GB HBM3). Adds their
+    launches."""
+    q = quarter_data(workdir, glen, n_reads)
+    q_fa = os.path.join(workdir, "quarter.short.fa")
+    half_fa = os.path.join(workdir, "quarter.short.half.fa")
+    _write_short_fasta(q.pop("sreads"), q_fa, half_fa)
+    qc = phase_cli(q, workdir, q_fa, smi, name="cli quarter")
+    launches["cli_quarter"] = qc["launches"]
+    launches["cli_default"] = phase_cli_default(q, workdir, q_fa, smi,
+                                                qc["out"])["launches"]
+    if index:
+        launches["index_g"] = phase_index(q, workdir, half_fa,
+                                          qc["out"])["launches"]
+    launches["dist"] = phase_dist(q, workdir, q_fa, qc["out"])
+
+
 def phase_rest(sl: dict, workdir: str, smi: str, launches: dict,
                glen: int, n_reads: int) -> None:
-    """[cli] on the slice's data; [index] and [dist] on a quarter of its
-    genome and long reads, beside the same `correct` run on that quarter
-    ([cli quarter]), which [dist] is held to: their host steps, index
-    builds above all, scale with the genome, and with all three on the
-    slice's data the script took 981.4 s of its 1,200 (NVIDIA H100 80GB
-    HBM3); then [bench]. Adds their launches."""
+    """[cli] on the slice's data, phase_quarter, then [bench]. Adds their
+    launches."""
     short_fa = os.path.join(workdir, "short.fa")
     t = time.time()
     _write_short_fasta(sl.pop("sreads"), short_fa)
@@ -1910,15 +2002,7 @@ def phase_rest(sl: dict, workdir: str, smi: str, launches: dict,
         f"FASTA in {time.time() - t:.1f}s")
     sl.pop("corr1"), sl.pop("corr2")
     launches["cli"] = phase_cli(sl, workdir, short_fa, smi)["launches"]
-    q = quarter_data(workdir, glen, n_reads)
-    q_fa = os.path.join(workdir, "quarter.short.fa")
-    half_fa = os.path.join(workdir, "quarter.short.half.fa")
-    _write_short_fasta(q.pop("sreads"), q_fa, half_fa)
-    qc = phase_cli(q, workdir, q_fa, smi, name="cli quarter")
-    launches["cli_quarter"] = qc["launches"]
-    launches["index_g"] = phase_index(q, workdir, half_fa,
-                                      qc["out"])["launches"]
-    launches["dist"] = phase_dist(q, workdir, q_fa, qc["out"])
+    phase_quarter(workdir, smi, launches, glen, n_reads, index=True)
     launches.update(phase_bench(smi))
 
 
@@ -1927,8 +2011,9 @@ def main(argv=None) -> int:
     ap.add_argument("--genome-bp", type=int, default=4_000_000)
     ap.add_argument("--long-reads", type=int, default=256)
     ap.add_argument("--mesh-only", action="store_true",
-                    help="run the kernels, the slice, [warm], [mesh] and [sharded] "
-                    "only (on several cards: one slot per card)")
+                    help="run the kernels, the slice, [warm], [mesh], "
+                    "[sharded], [cli quarter], [cli default] and [dist] only "
+                    "(on several cards: one slot, one process per card)")
     args = ap.parse_args(argv)
     if not (ROOT / "ratatosk_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: ratatosk_tpu_torch/ is not beside this script",
@@ -1968,14 +2053,18 @@ def main(argv=None) -> int:
                                                host_fastq)
             add("devplan", dp_launches)
         mesh, how = make_slots(torch)
-        add("mesh", phase_mesh(sl, workdir, mesh, how))
+        for path, counts in phase_mesh(sl, workdir, mesh, how).items():
+            add(path, counts)
         add("sharded", phase_sharded(sl, workdir, mesh))
-        if not args.mesh_only:
-            rest = {}
+        rest = {}
+        if args.mesh_only:
+            phase_quarter(workdir, smi, rest, args.genome_bp,
+                          args.long_reads, index=False)
+        else:
             phase_rest(sl, workdir, smi, rest, args.genome_bp,
                        args.long_reads)
-            for path, counts in rest.items():
-                add(path, counts)
+        for path, counts in rest.items():
+            add(path, counts)
     torch.cuda.synchronize()
     log(f"[done] {time.time() - t_all:.1f}s on {smi}")
 

@@ -23,6 +23,16 @@ import argparse
 import sys
 
 
+def correct_opt(flags):
+    """The CorrectOpt that the `correct` command builds from `flags`."""
+    from ratatosk_tpu_torch import cli
+    ap = argparse.ArgumentParser()
+    cli._add_common(ap.add_subparsers(dest="command").add_parser("correct"),
+                    correct_mode=True)
+    return cli._build_opt(ap.parse_args(["correct", *flags]),
+                          index_mode=False)
+
+
 def main(argv=None, *, device="cuda") -> int:
     """device: where each process corrects (tests pass "cpu")."""
     ap = argparse.ArgumentParser(
@@ -38,16 +48,9 @@ def main(argv=None, *, device="cuda") -> int:
 
     import torch.distributed as dist
 
-    from ratatosk_tpu_torch import cli
     from ratatosk_tpu_torch.parallel import distributed as D
 
-    # reuse the CLI parser to build the option struct
-    sub = argparse.ArgumentParser()
-    s2 = sub.add_subparsers(dest="command")
-    pc = s2.add_parser("correct")
-    cli._add_common(pc, correct_mode=True)
-    parsed = sub.parse_args(["correct"] + rest)
-    opt = cli._build_opt(parsed, index_mode=False)
+    opt = correct_opt(rest)
     try:
         D.run_distributed_correct(opt, coordinator=args.coordinator,
                                   num_processes=args.num_processes,

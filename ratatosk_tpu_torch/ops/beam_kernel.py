@@ -194,8 +194,9 @@ def enqueue_launch2(q: Enqueued):
 
 
 def _launch(q: Enqueued, phase: int) -> None:
-    err = q.lib.beam_search_launch(q.ptrs, len(PTRS), q.vals, len(INTS),
-                                   phase, q.index, q.stream)
+    err = cuda_lib.call_on(q.index, q.lib.beam_search_launch, q.ptrs,
+                           len(PTRS), q.vals, len(INTS), phase, q.index,
+                           q.stream)
     if err != 0:
         raise RuntimeError(f"beam kernel launch {phase} failed: CUDA error "
                            f"{err} ({q.shape})")

@@ -156,6 +156,20 @@ def device_index(dev) -> int:
     return torch.cuda.current_device() if dev.index is None else dev.index
 
 
+def call_on(index: int, launcher, *args) -> int:
+    """launcher(*args), a C launcher of the library, which sets the calling
+    thread's CUDA device to `index` (cudaSetDevice), with the thread's
+    current device restored after it: a launch on another card must not
+    move where the caller's next allocation on "cuda" lands. (Without
+    CUDA, as under a CPU emulation of the library, there is none to
+    restore.)"""
+    import torch
+    if not torch.cuda.is_available():
+        return launcher(*args)
+    with torch.cuda.device(index):
+        return launcher(*args)
+
+
 def check_tensor(fn: str, name: str, t, dtype, shape, device) -> None:
     """Raise unless wrapper fn's argument `name` is a contiguous tensor of
     `dtype` on `device`, of `shape` (any shape when None)."""

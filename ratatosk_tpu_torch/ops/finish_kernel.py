@@ -137,7 +137,8 @@ def enqueue(lib, arrays, *, qv_max, min_k, w, min_score_open, index, stream,
     arrays = dict(arrays, scalars=out.scalars, seq_packed=out.seq_packed,
                   minpre=_table(dev))
     ints = dict(R=R, NT=NT, L=L, w=w, qv_max=qv_max, min_k=min_k)
-    err = lib.finish_bundle_launch(
+    err = cuda_lib.call_on(
+        index, lib.finish_bundle_launch,
         cuda_lib.pointer_table([arrays[n] for n in PTRS]), len(PTRS),
         cuda_lib.int_table([ints[n] for n in INTS]), len(INTS),
         float(min_score_open), index, stream)

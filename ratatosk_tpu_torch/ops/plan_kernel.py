@@ -161,9 +161,10 @@ def _device(fn: str, t) -> torch.device:
 
 
 def _launch(lib_fn, ptrs, ints, arrays, values, index, stream, what):
-    err = lib_fn(cuda_lib.pointer_table([arrays[n] for n in ptrs]), len(ptrs),
-                 cuda_lib.int_table([values[n] for n in ints]), len(ints),
-                 index, stream)
+    err = cuda_lib.call_on(
+        index, lib_fn, cuda_lib.pointer_table([arrays[n] for n in ptrs]),
+        len(ptrs), cuda_lib.int_table([values[n] for n in ints]), len(ints),
+        index, stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
                            f"({values})")

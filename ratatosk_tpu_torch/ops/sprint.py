@@ -97,12 +97,12 @@ def sprint_rows(rwin, btgt, nb_all, newcols, wsall, m_reg, live, plen, *,
     if R == 0:
         return rwin_out, btgt_out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.sprint_rows_launch(
-        rwin.data_ptr(), btgt.data_ptr(), nb_all.data_ptr(),
-        newcols.data_ptr(), wsall.data_ptr(), m_reg.data_ptr(),
-        live.data_ptr(), plen.data_ptr(), rwin_out.data_ptr(),
-        btgt_out.data_ptr(), R, B, W, S1,
-        cuda_lib.device_index(dev), stream)
+    index = cuda_lib.device_index(dev)
+    err = cuda_lib.call_on(
+        index, lib.sprint_rows_launch, rwin.data_ptr(), btgt.data_ptr(),
+        nb_all.data_ptr(), newcols.data_ptr(), wsall.data_ptr(),
+        m_reg.data_ptr(), live.data_ptr(), plen.data_ptr(),
+        rwin_out.data_ptr(), btgt_out.data_ptr(), R, B, W, S1, index, stream)
     if err != 0:
         raise RuntimeError(f"sprint_rows kernel launch failed: CUDA error "
                            f"{err} (R={R} B={B} W={W} smax={smax})")

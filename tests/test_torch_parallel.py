@@ -3,24 +3,19 @@ sharded_index.py, and the Corrector's mesh and sharded modes) on CPU slots
 against the JAX package on its 8 virtual CPU devices (tests/conftest.py).
 A slot list may repeat a device: ["cpu", "cpu"] runs the split, the
 replicas and the gather as two cards would. Everything must be identical
-(tolerance 0)."""
+(tolerance 0).
+
+The cases marked `cuda` run the mesh and the sharded index over every
+visible card (two or more) against one card and the host index; they
+import no JAX, so they also run where JAX is not installed:
+    python -m pytest --noconftest -m cuda tests/test_torch_parallel.py"""
 
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from ratatosk_tpu import testing as JT
-from ratatosk_tpu.config import CorrectOpt as JOpt
-from ratatosk_tpu.correct.engine import Corrector as JCorrector
-from ratatosk_tpu.graph import build as JB
-from ratatosk_tpu.graph.colors import color_graph as j_color_graph
-from ratatosk_tpu.parallel import mesh as JM
-from ratatosk_tpu.parallel.sharded_index import \
-    ShardedKmerIndex as JShardedKmerIndex
 from ratatosk_tpu_torch import pipeline as TP
 from ratatosk_tpu_torch import testing as TT
 from ratatosk_tpu_torch.config import CorrectOpt as TOpt
@@ -30,13 +25,31 @@ from ratatosk_tpu_torch.graph import build as TB
 from ratatosk_tpu_torch.graph.colors import color_graph as t_color_graph
 from ratatosk_tpu_torch.graph.keys import KeyArray
 from ratatosk_tpu_torch.io import fastx as TFX
+from ratatosk_tpu_torch.ops import beam_kernel as TBK
 from ratatosk_tpu_torch.parallel import mesh as TM
 from ratatosk_tpu_torch.parallel.sharded_index import ShardedKmerIndex
-from tests import sim
-from tests import torch_parity as PAR
-from tests.test_torch_e2e import (K1, K2, _two_pass, dataset,  # noqa: F401
-                                  jax_two_pass)
-from tests.torch_parity import one_torch_thread  # noqa: F401
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from ratatosk_tpu import testing as JT
+    from ratatosk_tpu.config import CorrectOpt as JOpt
+    from ratatosk_tpu.correct.engine import Corrector as JCorrector
+    from ratatosk_tpu.graph import build as JB
+    from ratatosk_tpu.graph.colors import color_graph as j_color_graph
+    from ratatosk_tpu.parallel import mesh as JM
+    from ratatosk_tpu.parallel.sharded_index import \
+        ShardedKmerIndex as JShardedKmerIndex
+    from tests import sim
+    from tests import torch_parity as PAR
+    from tests.test_torch_e2e import (K1, K2, _two_pass,  # noqa: F401
+                                      dataset, jax_two_pass)
+    from tests.torch_parity import one_torch_thread  # noqa: F401
+except ModuleNotFoundError as e:
+    # a card's machine without JAX runs the `cuda` cases alone
+    if e.name != "jax":
+        raise
 
 
 def cpu_mesh(n: int) -> TM.Mesh:
@@ -380,3 +393,162 @@ def test_step_count_waits_end_when_a_slot_fails():
             raise RuntimeError("left")
     block.set()
     assert all(f.done() for f in futs)
+
+
+@pytest.fixture
+def cards():
+    """Every visible CUDA device; skips below two (decided here, not at
+    import)."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip(f"needs two or more CUDA devices ({n} visible)")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _card_data():
+    """A 12 kbp genome's k=21 graph from 40x short reads, and 8 noisy long
+    reads (the port's simulator: no JAX)."""
+    rng = np.random.default_rng(100)
+    genome = TT.random_genome(rng, 12000)
+    sreads = TT.short_reads(rng, genome, coverage=40.0)
+    reads = [TT.noisy_read(rng, genome, 500 + 1200 * i, 2000, err=0.10)[0]
+             for i in range(8)]
+    cdbg = TB.build_cdbg(sreads, 21, min_count=2)
+    return cdbg, t_color_graph(cdbg, sreads), reads
+
+
+@pytest.mark.cuda
+def test_mesh_over_every_card_equals_one_card(cards, monkeypatch):
+    """Corrector(mesh=every visible card).correct_batch writes one card's
+    reads; every card launches the fused beam kernel, and in every launch
+    each slot's launch 2 reads the launch's T, the max of the slots' own
+    counts, from its t_launch (copied on the slot's stream)."""
+    import threading
+    cdbg, colors, reads = _card_data()
+    # launches of 8 regions (chunks are at least 8): every slot holds real
+    # rows in the first launch
+    kw = dict(small_k=21, k=63, beam_width=8,
+              batch_regions=max(8, 2 * len(cards)))
+    want = TCorrector(cdbg, colors, TOpt(**kw),
+                      device=cards[0]).correct_batch(reads)
+    agrees, seen = {}, {}
+    agree, launch2 = TM.StepCount.agree, TBK.enqueue_launch2
+
+    def spy_agree(steps, own):
+        T = agree(steps, own)
+        agrees.setdefault(threading.get_ident(), []).append(
+            (id(steps), own, T))
+        return T
+
+    def spy_launch2(q):
+        seen.setdefault(threading.get_ident(), []).append(q.t_launch.clone())
+        return launch2(q)
+
+    monkeypatch.setattr(TM.StepCount, "agree", spy_agree)
+    monkeypatch.setattr(TBK, "enqueue_launch2", spy_launch2)
+    mesh = TM.make_mesh(devices=cards)
+    TBK.fused_beam_search.launches_by_stream.clear()
+    got = TCorrector(cdbg, colors, TOpt(**kw), mesh=mesh).correct_batch(
+        reads)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.codes, w.codes)
+        np.testing.assert_array_equal(g.qual, w.qual)
+    launches = {}
+    for tid, own_t in agrees.items():
+        assert len(seen[tid]) == len(own_t)
+        for (key, own, T), t in zip(own_t, seen[tid]):
+            assert int(t.item()) == T
+            launches.setdefault(key, []).append((own, T))
+    assert launches
+    for slots in launches.values():
+        assert all(T == max(o for o, _ in slots) for _, T in slots), slots
+    assert max(len(s) for s in launches.values()) == len(cards)
+    per_card = [TBK.fused_beam_search.launches_by_stream.get(
+        mesh.stream(i).cuda_stream, 0) for i in range(mesh.size)]
+    assert min(per_card) > 0, per_card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [21, 63])
+def test_sharded_index_over_every_card_matches_host(cards, k):
+    """ShardedKmerIndex range-split over every visible card answers as the
+    host index (KeyArray.find): present keys, absent ones, keys around
+    every shard boundary; the answers land on slot 0's card."""
+    rng = np.random.default_rng(800 + k)
+    genome = TT.random_genome(rng, 20000)
+    cdbg = TB.build_cdbg([genome], k, min_count=1)
+    q_lo, q_hi = _queries(cdbg.index, len(cards), rng)
+    sidx = ShardedKmerIndex(cdbg.index, TM.make_mesh(devices=cards))
+    assert [s.device for s in sidx.keys] == cards
+    got = sidx.lookup(q_lo, q_hi)
+    assert all(t.device == cards[0] for t in got)
+    uid, pos, strand = (t.cpu().numpy() for t in got)
+    rows = KeyArray(k, cdbg.index.keys_lo, cdbg.index.keys_hi).find(
+        KeyArray(k, q_lo, q_hi))
+    hit = rows >= 0
+    assert hit.sum() > 250
+    np.testing.assert_array_equal(uid >= 0, hit)
+    np.testing.assert_array_equal(uid[hit], cdbg.index.unitig_id[rows[hit]])
+    np.testing.assert_array_equal(pos[hit], cdbg.index.pos[rows[hit]])
+    np.testing.assert_array_equal(strand[hit],
+                                  cdbg.index.strand[rows[hit]])
+
+
+@pytest.mark.cuda
+def test_a_launch_on_another_card_keeps_the_current_device(cards):
+    """The launchers set the calling thread's CUDA device to the card they
+    launch on (cudaSetDevice); the wrappers restore the thread's own, so a
+    launch on the last card from a thread on cuda:0 leaves the next
+    allocation on "cuda" on cuda:0, in the main thread and in another."""
+    import threading
+    from ratatosk_tpu_torch.ops.finish_kernel import finish_bundle_kernel
+    from tests import finish_cases as FC
+    NT, L, w = FC.SHAPES["band_192"]
+
+    def launch():
+        dev = cards[-1]
+        a = {k: torch.tensor(v, device=dev)
+             for k, v in FC.finish_case(1, NT, L).items()}
+        res = TBM.BeamResult(**{f: a[f] for f in TBM.FIELDS})
+        finish_bundle_kernel(a["tgt_masks"], a["tgt_len"], a["tgt_qual"], 40,
+                             21, res, w=w, min_score_open=0.6)
+        torch.cuda.synchronize(dev)
+        return torch.cuda.current_device(), torch.empty(1, device="cuda").device
+
+    torch.cuda.set_device(cards[0])
+    assert launch() == (0, cards[0])
+    got = []
+    t = threading.Thread(target=lambda: got.append(launch()))
+    t.start()
+    t.join()
+    assert got == [(0, cards[0])]
+
+
+def test_call_on_restores_the_threads_device(monkeypatch):
+    """cuda_lib.call_on runs a C launcher (which cudaSetDevice()s the
+    calling thread) inside a device guard for its card, so the thread's own
+    device comes back after it (on the cards:
+    test_a_launch_on_another_card_keeps_the_current_device); without CUDA
+    there is no device to restore."""
+    import contextlib
+    from ratatosk_tpu_torch.ops import cuda_lib
+    events = []
+
+    @contextlib.contextmanager
+    def guard(index):
+        events.append(("enter", index))
+        yield
+        events.append(("exit", index))
+
+    def launcher(*args):
+        events.append(("launch", args))
+        return 7
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cuda_lib.call_on(2, launcher, "a") == 7
+    assert events == [("launch", ("a",))]
+    events.clear()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device", guard)
+    assert cuda_lib.call_on(3, launcher, 1, 2) == 7
+    assert events == [("enter", 3), ("launch", (1, 2)), ("exit", 3)]
