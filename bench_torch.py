@@ -42,7 +42,6 @@ import time
 T_START = time.time()   # the "imports" phase opens here
 
 import argparse  # noqa: E402
-import hashlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import resource  # noqa: E402
@@ -50,12 +49,11 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
 from concurrent.futures import ThreadPoolExecutor  # noqa: E402
-from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from ratatosk_tpu_torch import dna, testing  # noqa: E402
+from ratatosk_tpu_torch import digests, dna, testing  # noqa: E402
 from ratatosk_tpu_torch.config import CorrectOpt  # noqa: E402
 from ratatosk_tpu_torch.correct.engine import Corrector  # noqa: E402
 from ratatosk_tpu_torch.graph import build as B  # noqa: E402
@@ -73,6 +71,10 @@ READ_LEN = 4000
 RAW_ERR = 0.10
 N_TRUTH = 400          # long reads scored against their truth
 N_WARM = 64            # long reads of each pass's untimed warm-up
+SEED = 1234
+# bench.py's options (bench.py:96), as CorrectOpt fields
+OPTIONS = dict(small_k=31, k=63, beam_width=16, batch_regions=512,
+               nb_threads=2, read_batch_bp=1 << 20)
 # the kernels of the main path, by the name of their wrapper; the planner's
 # two launch only with --plan device
 PATH_KERNELS = {"fused_beam_search": beam_kernel.fused_beam_search,
@@ -115,6 +117,22 @@ def sizes(size_args) -> tuple:
                    else max(glen // 800, 8))
         return glen, n_reads, 0.15, 250
     return 4_000_000, 5000, 0.15, 250
+
+
+def bench_options(**overrides) -> dict:
+    """bench.py's options with `overrides` (CorrectOpt fields) over them:
+    a run's options, and its key among the JAX package's digests."""
+    return {**OPTIONS, **overrides}
+
+
+def data_rule(size_args, seed: int) -> dict:
+    """The data of a run (simulate_short, then write_long_reads): its key
+    among the JAX package's digests."""
+    glen, n_reads, repeat_frac, repeat_len = sizes(list(size_args))
+    return dict(generator="bench_torch.simulate_short+write_long_reads",
+                seed=seed, genome_bp=glen, n_long_reads=n_reads,
+                repeat_frac=repeat_frac, repeat_len=repeat_len,
+                read_len=READ_LEN, raw_err=RAW_ERR)
 
 
 def simulate_short(seed: int, glen: int, repeat_frac: float,
@@ -176,7 +194,7 @@ def rss_gb() -> float:
 
 
 def sha256(path: str) -> str:
-    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+    return digests.file_sha256(path)
 
 
 def device_busy(prof, wall: float) -> dict:
@@ -324,7 +342,7 @@ def trace_pass(corr: Corrector, opt: CorrectOpt, src: str, out: str) -> dict:
 
 
 def run(size_args=(), *, device="cuda", workdir: str, repeats: int = 1,
-        plan: str = "host", seed: int = 1234, trace: bool = False,
+        plan: str = "host", seed: int = SEED, trace: bool = False,
         t_start: float | None = None, read_batch_bp: int = 1 << 20,
         warm_reads: int = N_WARM, **opt_kw) -> dict:
     """bench.py's run through the port on `device` (cuda:0 unless the
@@ -357,10 +375,8 @@ def run(size_args=(), *, device="cuda", workdir: str, repeats: int = 1,
         f"reads; seed {seed}; {plan} planner on "
         f"{dev_info['smi'] if on_card else 'cpu'}")
     rng, genome, sreads = simulate_short(seed, glen, repeat_frac, repeat_len)
-    opt = CorrectOpt(**{**dict(small_k=31, k=63, beam_width=16,
-                               batch_regions=512, nb_threads=2,
-                               read_batch_bp=read_batch_bp,
-                               plan_on_device=plan == "device"), **opt_kw})
+    options = bench_options(read_batch_bp=read_batch_bp, **opt_kw)
+    opt = CorrectOpt(**options, plan_on_device=plan == "device")
     o1, o2 = _pass_opt(opt, 1), _pass_opt(opt, 2)
 
     # the kernel library's nvcc build runs in a thread while the pass-1
@@ -448,6 +464,22 @@ def run(size_args=(), *, device="cuda", workdir: str, repeats: int = 1,
         if len(set(shas)) != 1:
             raise AssertionError(f"{p}: the runs' FASTQ differ: {shas}")
 
+    fastq = {"pass1": p1_runs[0]["sha256"], "final": p2_runs[0]["sha256"]}
+    # held to the JAX package's digests of this data and these options
+    try:
+        jax_entry = digests.check(
+            "bench", data_rule(size_args, seed), options,
+            lambda: {"short.fa": digests.short_fasta_sha256(sreads),
+                     "long.fq": sha256(lr_path)}, fastq)
+        jax_match = None if jax_entry is None else True
+    except digests.Mismatch as e:
+        jax_entry, jax_match = e.name, False
+        log(str(e))
+    log("no JAX package digests for this data and these options"
+        if jax_entry is None else
+        f"FASTQ {'equal to' if jax_match else 'DIFFERENT FROM'} the JAX "
+        f"package's ({digests.PATH.name} entry {jax_entry})")
+
     phases.open("score")
     err = {"raw": residual_error(lr_path, truths),
            "pass1": residual_error(p1_path, truths),
@@ -499,6 +531,8 @@ def run(size_args=(), *, device="cuda", workdir: str, repeats: int = 1,
                          "pass2": p2_runs[0]["sha256"]},
         "error": err,
         "trace": traced,
+        "jax_entry": jax_entry,
+        "jax_match": jax_match,
     }
 
 
@@ -509,7 +543,7 @@ def main(argv=None) -> int:
                     "5,000 reads)")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--plan", choices=("host", "device"), default="host")
-    ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--seed", type=int, default=SEED)
     ap.add_argument("--trace", action="store_true",
                     help="pass 1 once more under torch.profiler (untimed)")
     ap.add_argument("--device", default="cuda",
@@ -523,7 +557,8 @@ def main(argv=None) -> int:
                      repeats=args.repeats, plan=args.plan, seed=args.seed,
                      trace=args.trace, t_start=T_START)
     print(json.dumps(result), flush=True)
-    return 0
+    # FASTQ that differ from the JAX package's on the same data and options
+    return 1 if result.get("jax_match") is False else 0
 
 
 if __name__ == "__main__":

@@ -21,6 +21,17 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      host's enqueue left out), each with its bound (bytes over 3.35 TB/s,
      int32 operations over 132 x 64 x 1.98 GHz, for the entries and
      substeps the launch advances);
+  3a. [align] ops/align.edit_distance (the JAX package's ops/align.py; on a
+     CUDA tensor the align kernel, csrc/align.cu) in NW, SHW and HW at the
+     engine's three bucket shapes (B/M/N 512/256/256, 256/2048/2048,
+     128/5376/5376; ~10% substitutions, some IUPAC R and N) and on edge
+     rows (N = 1, 700 and 2,100; a_len 0 and past M, b_len 0, past N and
+     negative, arbitrary padding bytes), counts reset just before and read
+     just after: every result equal to the plain version (impl="torch"),
+     tensor for tensor, both timed as in phase 3, with the bound (the mask
+     bytes the batch needs read and every output written once, MYERS_OPS +
+     ALIGN_EQ_OPS int32 operations per 32-column word of the columns each
+     pair needs, up to its b_len, in each row it needs, 1..a_len);
   4. the slice: the two-pass correction that bench.py drives (4 Mbp genome
      with 15% x 250 bp repeats, 40x 120 bp short reads, 4 kbp long reads at
      10% error, beam 16, 512 regions per launch, host planner, 2 threads),
@@ -94,7 +105,9 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      card (one card: --devices 1's path); both FASTQ files must equal [cli
      quarter]'s byte for byte, and on a mesh every card must launch both
      kernels and every slot of every launch read its launch's T (as in
-     [mesh]);
+     [mesh]). At the default size both runs' pass-1 and final FASTQ must
+     equal the JAX package's (ratatosk_tpu_torch/data/jax_digests.json,
+     cli_quarter; the inputs' sha256 checked first);
   8. [index] on that quarter: `index -1` on the first half of its short
      reads (20x), the index's load and save timed on their own, then
      `correct -g <prefix>.index.k31.npz -1` on all its long reads: the files
@@ -115,7 +128,10 @@ Phases, one line each (any failure raises, and the script exits non-zero):
  10. [sharded] ShardedKmerIndex over the same slots on the slice's k=31 and
      k=63 indexes: one read batch's canonical k-mers, absent keys with bit
      63 set and the all-ones key must get the host index's answers
-     (KeyArray.find), timed per batch; then both passes with
+     (KeyArray.find), timed per batch; [lookup] the same queries through
+     ops/kmer_index.lookup on the index's copy on cuda:0 (one word at k=31,
+     two at k=63) must give the same call's rows on the CPU, the host
+     index's rows and the sharded index's answers; then both passes with
      shard_index_min_keys=0 (anchor lookups through the sharded index),
      byte-identical to the slice, each launch's T checked as in [mesh];
  11. [dist] the multi-host launcher on the [cli quarter] inputs, joined
@@ -131,9 +147,11 @@ Phases, one line each (any failure raises, and the script exits non-zero):
      device, each in its own process on cuda:0: each must exit 0 with a
      JSON last line whose passes launched the kernels of their path (the
      planner's two with --plan device), and the two runs' FASTQ sha256 must
-     be equal; both runs' bases/s are printed with the card's name.
-Launch counts are reset just before each path (the slice, [warm], each
-[plain] route, [wide]'s "steps" run, the 16-read planner run, the mesh,
+     be equal and the JAX package's (jax_digests.json bench_smoke: each
+     run's "jax_match" must be true); both runs' bases/s are printed with
+     the card's name.
+Launch counts are reset just before each path ([align], the slice, [warm],
+each [plain] route, [wide]'s "steps" run, the 16-read planner run, the mesh,
 mesh devplan and sharded runs, the three CLI runs, the -g run; each [dist]
 process counts its own, each [bench]
 process its timed passes) and read just after; the kernels' record sums
@@ -181,9 +199,9 @@ def _cmd(args) -> str:
 # the "steps" route ([plain]), the device planner's two on [devplan]'s
 # plan_on_device path too
 KERNELS = ("fused_beam_search", "finish_bundle_kernel", "sprint_rows",
-           "runs_kernel", "probe_kernel")
+           "runs_kernel", "probe_kernel", "edit_distance_kernel")
 PATH_KERNELS = KERNELS[:2]
-PLAN_KERNELS = KERNELS[3:]
+PLAN_KERNELS = KERNELS[3:5]
 # H100 SXM rates for the bounds (HBM3 peak bandwidth; int32: 132 SMs
 # x 64 INT32 lanes x 1.98 GHz: one int op per lane per clock)
 HBM_BYTES_PER_S = 3.35e12
@@ -191,13 +209,14 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def _wrappers():
-    from ratatosk_tpu_torch.ops import (beam_kernel, finish_kernel,
-                                        plan_kernel, sprint)
+    from ratatosk_tpu_torch.ops import (align_kernel, beam_kernel,
+                                        finish_kernel, plan_kernel, sprint)
     return {"fused_beam_search": beam_kernel.fused_beam_search,
             "finish_bundle_kernel": finish_kernel.finish_bundle_kernel,
             "sprint_rows": sprint.sprint_rows,
             "runs_kernel": plan_kernel.runs_kernel,
-            "probe_kernel": plan_kernel.probe_kernel}
+            "probe_kernel": plan_kernel.probe_kernel,
+            "edit_distance_kernel": align_kernel.edit_distance_kernel}
 
 
 def _reset_launches():
@@ -369,6 +388,118 @@ def phase_kernels(torch, dev):
     """The sprint kernel against its plain version on sprint_cases."""
     return {key: sprint_row(torch, arrs, KERNEL_SHAPES["smax"], "random")
             for key, arrs in sprint_cases(dev)}
+
+
+# the align kernel's launches: the engine's three bucket shapes (B pairs, M
+# query and N target columns), then the edge rows
+ALIGN_SHAPES = ((512, 256, 256), (256, 2048, 2048), (128, 5376, 5376))
+ALIGN_EDGES = ((64, 300, 1), (64, 300, 700), (64, 40, 2100))
+# int32 operations per 32-column word of a row beyond MYERS_OPS: the match
+# word, an OR of the target's four bit-planes each ANDed with one bit of the
+# query's mask
+ALIGN_EQ_OPS = 7
+
+
+def align_inputs(rng, B: int, M: int, N: int, edge: bool = False):
+    """Pairs as the engine aligns them: ACGT masks (with some IUPAC R and
+    N), the target a copy of the query at ~10% substitutions, lengths
+    between half and all of the width, zero padding. `edge`: a_len 0 and
+    past M, b_len 0, past N and negative, arbitrary padding bytes."""
+    import numpy as np
+    a = (1 << rng.integers(0, 4, (B, M))).astype(np.uint8)
+    b = (1 << rng.integers(0, 4, (B, N))).astype(np.uint8)
+    L = min(M, N)
+    b[:, :L] = np.where(rng.random((B, L)) < 0.1, b[:, :L], a[:, :L])
+    for x in (a, b):
+        x[rng.random(x.shape) < 0.02] = 1 | 4
+        x[rng.random(x.shape) < 0.01] = 15
+    a_len = rng.integers(M // 2, M + 1, B).astype(np.int32)
+    b_len = rng.integers(N // 2, N + 1, B).astype(np.int32)
+    if edge:
+        a_len[:3] = [0, M + 2, M]
+        b_len[-5:] = [0, N + 3, -1, -(N + 4), N]
+    for x, n in ((a, a_len), (b, b_len)):
+        pad = np.arange(x.shape[1])[None, :] >= n[:, None]
+        x[pad] = rng.integers(0, 256, int(pad.sum())) if edge else 0
+    return a, a_len, b, b_len
+
+
+def align_work(a_len, b_len, M: int, N: int, mode: int) -> tuple:
+    """(bytes, int32 ops) of one edit_distance call, counted for this
+    batch's lengths. A pair needs the rows 1..a_len when a_len lies in
+    [0, M] (none of another) and the target's columns up to b_len clipped
+    to [0, N] (NW also up to the column its distance reads): every column
+    past them is BIG in the row, and column j needs only columns <= j. So
+    (MYERS_OPS + ALIGN_EQ_OPS) ops per 32-column word of those columns per
+    row; bytes: the query's a_len and the target's needed mask bytes of a
+    pair with a row to run, both lengths, and every output written
+    once."""
+    import numpy as np
+    a_len = np.asarray(a_len, np.int64)
+    b_len = np.asarray(b_len, np.int64)
+    rows = np.where((a_len >= 0) & (a_len <= M), a_len, 0)
+    cols = np.clip(b_len, 0, N)
+    if mode == 0:  # NW: the column read as the reference's take_along_axis
+        at = np.where(b_len < 0, b_len + N + 1, b_len)
+        cols = np.maximum(cols, np.where((at >= 0) & (at <= N), at, 0))
+    words = -(-cols // 32)
+    nbytes = int((rows + np.where(rows > 0, cols, 0)).sum()) \
+        + len(a_len) * (8 + 12 + 4 * (N + 1))
+    return nbytes, (MYERS_OPS + ALIGN_EQ_OPS) * int((rows * words).sum())
+
+
+def phase_align(torch, dev) -> tuple:
+    """[align]: ops/align.edit_distance (impl="auto") at the engine's three
+    bucket shapes and on the edge rows, all three modes, with the launch
+    counts reset just before and read just after; then each result held to
+    the plain version (impl="torch") on the same inputs, tensor for tensor,
+    and the kernel and the plain version timed. Returns (launches, rows by
+    shape)."""
+    import numpy as np
+    from ratatosk_tpu_torch.ops import align as A
+    from ratatosk_tpu_torch.ops import align_kernel as AK
+    rng = np.random.default_rng(SEED + 5)
+    cases = [("x".join(map(str, s)), align_inputs(rng, *s))
+             for s in ALIGN_SHAPES]
+    cases += [("edge " + "x".join(map(str, s)), align_inputs(rng, *s, True))
+              for s in ALIGN_EDGES]
+    cases = [(tag, [torch.tensor(x, device=dev) for x in arrs])
+             for tag, arrs in cases]
+    modes = (("NW", A.NW), ("SHW", A.SHW), ("HW", A.HW))
+    _reset_launches()
+    got = {(tag, m): A.edit_distance(*arrs, mode)
+           for tag, arrs in cases for m, mode in modes}
+    torch.cuda.synchronize()
+    launches = {"edit_distance_kernel": AK.edit_distance_kernel.launches}
+    _require_launches("align", launches)
+    rows = {}
+    for tag, arrs in cases:
+        B, M = arrs[0].shape
+        N = arrs[2].shape[1]
+        for m, mode in modes:
+            want = A.edit_distance(*arrs, mode, impl="torch")
+            err = max(int((g.long() - w.long()).abs().max()) if g.numel()
+                      else 0 for g, w in zip(got[tag, m], want))
+            if not all(torch.equal(g, w) for g, w in zip(got[tag, m], want)):
+                raise AssertionError(f"[align] {tag} {m}: the kernel differs "
+                                     f"from its plain version (max abs err "
+                                     f"{err})")
+            ms = _call_ms(torch, lambda: A.edit_distance(*arrs, mode),
+                          reps=10)
+            plain = _call_ms(torch, lambda: A.edit_distance(
+                *arrs, mode, impl="torch"), reps=2)
+            nbytes, ops = align_work(arrs[1].cpu().numpy(),
+                                     arrs[3].cpu().numpy(), M, N, mode)
+            bound, by = _bound_ms(nbytes, ops)
+            rows[f"{tag} {m}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                      bound_ms=bound, bound_by=by, B=B, M=M,
+                                      N=N, ops=ops, bytes=nbytes)
+            log(f"[align] {tag} {m}: equal to the plain version; kernel "
+                f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms "
+                f"({by}; {ops} int32 ops, {nbytes} bytes)")
+    log(f"[align] {launches['edit_distance_kernel']} kernel launches on the "
+        f"path ({len(cases)} batches x 3 modes)")
+    return launches, rows
 
 
 def _engine_pad(n: int, batch_regions: int) -> int:
@@ -1607,6 +1738,31 @@ def _batch_queries(reads, k, rng):
     return np.concatenate(los), np.concatenate(his)
 
 
+def phase_lookup(torch, idx, q_lo, q_hi, rows, uid, name: str) -> list:
+    """ops/kmer_index.lookup of a batch on the card: its rows must equal
+    the same call on the CPU, the host index's rows (`rows`) and the
+    sharded index's answers (`uid`: -1 exactly where the row is -1, the
+    row's unitig elsewhere). Returns the ms of three timed calls."""
+    import numpy as np
+    from ratatosk_tpu_torch.ops import kmer_index as KI
+    dev_idx = idx.to_device(torch.device("cuda", 0))
+    got = KI.lookup(dev_idx, q_lo, q_hi).cpu().numpy()
+    cpu = KI.lookup(idx.to_device("cpu"), q_lo, q_hi).numpy()
+    hit = got >= 0
+    if not (np.array_equal(got, cpu) and np.array_equal(got, rows)
+            and np.array_equal(uid >= 0, hit)
+            and np.array_equal(uid[hit], idx.unitig_id[got[hit]])):
+        raise AssertionError(f"[lookup] {name}: the card's rows differ from "
+                             "the CPU's, the host index's or the sharded "
+                             "index's")
+    ms = []
+    for _ in range(3):
+        t = time.time()
+        KI.lookup(dev_idx, q_lo, q_hi).cpu()
+        ms.append(1000 * (time.time() - t))
+    return ms
+
+
 def phase_sharded(sl: dict, workdir: str, mesh):
     """ShardedKmerIndex lookups against the host index, then both passes
     with every anchor lookup through it."""
@@ -1629,6 +1785,7 @@ def phase_sharded(sl: dict, workdir: str, mesh):
             KeyArray(idx.k, q_lo, q_hi))
         hit = rows >= 0
         uid, pos, strand = (t.cpu().numpy() for t in sh.lookup(q_lo, q_hi))
+        lookup_ms = phase_lookup(torch, idx, q_lo, q_hi, rows, uid, name)
         ok = (np.array_equal(uid >= 0, hit)
               and np.array_equal(uid[hit], idx.unitig_id[rows[hit]])
               and np.array_equal(pos[hit], idx.pos[rows[hit]])
@@ -1643,6 +1800,12 @@ def phase_sharded(sl: dict, workdir: str, mesh):
             [x.cpu() for x in sh.lookup(q_lo, q_hi)]
             ms.append(1000 * (time.time() - t))
         ms_all[name] = ms
+        log(f"[lookup] {name}: ops/kmer_index.lookup on cuda:0 "
+            f"({'two words' if idx.two_word else 'one word'}, "
+            f"{len(q_lo)} queries) equals the CPU's, the host index's rows "
+            f"and the sharded index's; ms per batch (upload, search, "
+            f"read-back): "
+            f"{', '.join(f'{x:.2f}' for x in lookup_ms)}")
         log(f"[sharded] {name}: {idx.n} keys over {mesh.size} slots "
             f"({sh.per} per shard, built in {t_build:.2f}s); {len(q_lo)} "
             f"queries ({int(hit.sum())} present, 1,001 absent incl. bit-63 "
@@ -1764,21 +1927,30 @@ def _trace(path: str) -> list:
         return [json.loads(line) for line in f]
 
 
+def cli_flags(devices=("--devices", "1")) -> list:
+    """The `correct` command's flags in [cli] and [cli quarter] (with
+    `devices`, the --devices flag or none), the port's default
+    --batch-regions named, as the JAX CLI (default 64) must be given it;
+    with --devices 1, [cli quarter]'s key among the JAX package's
+    digests."""
+    return ["-c", "2", *devices, "--batch-regions", "512"]
+
+
 def phase_cli(sl: dict, workdir: str, short_fa: str, smi: str,
               name: str = "cli", devices=("--devices", "1")):
-    """The user's `correct` command on the data of `sl` (with `devices`,
-    the --devices flag or none); `name` tags its lines and names its
-    files."""
+    """The user's `correct` command on the data of `sl` with
+    cli_flags(devices); `name` tags its lines and names its files. Returns
+    its launches, output prefix and flags."""
     import torch
     from ratatosk_tpu_torch import cli
     truth, n_reads = sl["truth"], len(sl["truth"])
     out = os.path.join(workdir, name.replace(" ", "_"))
     trace = out + ".trace.jsonl"
+    flags = cli_flags(devices)
     _reset_launches()
     t = time.time()
     cli.main(["correct", "-s", short_fa, "-l", sl["lr_path"], "-o", out,
-              "-c", "2", *devices, "-v", "--trace-json", trace],
-             device="cuda")
+              *flags, "-v", "--trace-json", trace], device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = _launches()
@@ -1792,7 +1964,7 @@ def phase_cli(sl: dict, workdir: str, short_fa: str, smi: str,
     raw = _raw_error(truth)
     dt = passes[1]["secs"] + passes[2]["secs"]
     steps = (sum(e["secs"] for e in snp + rescue) + dt)
-    log(f"[{name}] correct -c 2 {' '.join(devices)} (k 31/63, SNPs and edge "
+    log(f"[{name}] correct {' '.join(flags)} (k 31/63, SNPs and edge "
         f"rescue on): {wall:.1f}s wall; edge rescue {rescue[0]['edges']} edges in "
         f"{rescue[0]['secs']:.1f}s; SNP detection "
         + ", ".join(f"pass {i + 1} {e['sites']} sites in {e['secs']:.1f}s"
@@ -1806,7 +1978,7 @@ def phase_cli(sl: dict, workdir: str, short_fa: str, smi: str,
         f"{mid:.4f}, pass 2 {cor:.4f}")
     if not cor < raw / 5:
         raise AssertionError(f"[{name}] error {cor:.4f} is not below raw/5")
-    return dict(launches=launches, out=out)
+    return dict(launches=launches, out=out, flags=flags)
 
 
 def phase_cli_default(sl: dict, workdir: str, short_fa: str, smi: str,
@@ -1902,19 +2074,52 @@ def phase_index(sl: dict, workdir: str, half_fa: str, cli_out: str):
     return dict(launches=launches)
 
 
+def hold_to_jax(tag: str, rule: dict, flags: list, short_fa: str,
+                long_fq: str, out: str) -> None:
+    """Both FASTQ files of the `correct` run that wrote `out` must be the
+    JAX package's on the same data (`rule`) and flags (the entry of
+    ratatosk_tpu_torch/data/jax_digests.json that has them); its inputs are
+    checked first. Where no entry has them, says so."""
+    from ratatosk_tpu_torch import digests
+    fastq = {"pass1": digests.file_sha256(out + ".2.fastq"),
+             "final": digests.file_sha256(out + ".fastq")}
+    name = digests.check("cli", rule, flags, lambda: {
+        "short.fa": digests.file_sha256(short_fa),
+        "long.fq": digests.file_sha256(long_fq)}, fastq)
+    if name is None:
+        log(f"[{tag}] no JAX package digests for this data and these flags "
+            f"({rule['genome_bp']} bp, {rule['n_long_reads']} reads; "
+            f"{' '.join(flags)})")
+        return
+    log(f"[{tag}] pass 1 and final FASTQ equal the JAX package's "
+        f"(jax_digests.json {name}: {fastq['pass1'][:12]}..., "
+        f"{fastq['final'][:12]}...)")
+
+
+def quarter_rule(glen: int, n_reads: int) -> dict:
+    """The data rule of quarter_data(workdir, glen, n_reads): its key among
+    the JAX package's digests."""
+    return dict(generator="chip_smoke.quarter_data", seed=SEED + 3,
+                genome_bp=glen // 4, n_long_reads=max(n_reads // 4, 16),
+                repeat_frac=0.15, repeat_len=250, read_len=4000,
+                raw_err=0.10)
+
+
 def quarter_data(workdir: str, glen: int, n_reads: int) -> dict:
     """A dataset of the slice's shape (repeats, 40x short reads, 4 kbp long
     reads at 10% error) on a quarter of its genome and long reads."""
     import numpy as np
     from ratatosk_tpu_torch import testing
     t = time.time()
-    rng = np.random.default_rng(SEED + 3)
-    genome = testing.random_genome(rng, glen // 4, repeat_frac=0.15,
-                                   repeat_len=250)
+    rule = quarter_rule(glen, n_reads)
+    rng = np.random.default_rng(rule["seed"])
+    genome = testing.random_genome(rng, rule["genome_bp"],
+                                   repeat_frac=rule["repeat_frac"],
+                                   repeat_len=rule["repeat_len"])
     sreads = testing.short_reads(rng, genome, coverage=40.0)
     lr_path = os.path.join(workdir, "quarter.long.fq")
-    truth, total = _write_long_reads(rng, genome, max(n_reads // 4, 16),
-                                     4000, lr_path)
+    truth, total = _write_long_reads(rng, genome, rule["n_long_reads"],
+                                     rule["read_len"], lr_path)
     log(f"[cli quarter] simulated genome {glen // 4} bp, {len(sreads)} "
         f"short reads, {len(truth)} long reads ({total} bp) in "
         f"{time.time() - t:.1f}s")
@@ -1942,6 +2147,11 @@ def phase_bench(smi: str) -> dict:
             raise AssertionError(f"[bench] --plan {plan} exited "
                                  f"{proc.returncode}:\n{proc.stderr[-4000:]}")
         res = json.loads(proc.stdout.strip().splitlines()[-1])
+        if res["jax_entry"] != "bench_smoke" or res["jax_match"] is not True:
+            raise AssertionError(
+                f"[bench] --plan {plan}: not held to the JAX package's "
+                f"bench_smoke digests: jax_entry {res['jax_entry']}, "
+                f"jax_match {res['jax_match']}")
         need = PATH_KERNELS + (PLAN_KERNELS if plan == "device" else ())
         counts = {n: 0 for n in need}
         for p in ("pass1", "pass2"):
@@ -1961,7 +2171,8 @@ def phase_bench(smi: str) -> dict:
             f"{res['warmup_s']['pass1']:.1f} / {res['warmup_s']['pass2']:.1f}s"
             f"; n_fallback {p1['n_fallback']} / {p2['n_fallback']}; "
             f"error raw {res['error']['raw']:.4f}, pass 2 "
-            f"{res['error']['pass2']:.4f}; launches {counts}")
+            f"{res['error']['pass2']:.4f}; launches {counts}; FASTQ equal "
+            "to the JAX package's (jax_digests.json bench_smoke)")
     if out["host"]["fastq_sha256"] != out["device"]["fastq_sha256"]:
         raise AssertionError("[bench] the two planners' FASTQ differ: "
                              f"{out['host']['fastq_sha256']} / "
@@ -1981,10 +2192,16 @@ def phase_quarter(workdir: str, smi: str, launches: dict, glen: int,
     q_fa = os.path.join(workdir, "quarter.short.fa")
     half_fa = os.path.join(workdir, "quarter.short.half.fa")
     _write_short_fasta(q.pop("sreads"), q_fa, half_fa)
+    rule = quarter_rule(glen, n_reads)
     qc = phase_cli(q, workdir, q_fa, smi, name="cli quarter")
+    hold_to_jax("cli quarter", rule, qc["flags"], q_fa, q["lr_path"],
+                qc["out"])
     launches["cli_quarter"] = qc["launches"]
-    launches["cli_default"] = phase_cli_default(q, workdir, q_fa, smi,
-                                                qc["out"])["launches"]
+    qd = phase_cli_default(q, workdir, q_fa, smi, qc["out"])
+    # the CLI's default mesh must write [cli quarter]'s (--devices 1) bytes
+    hold_to_jax("cli default", rule, qc["flags"], q_fa, q["lr_path"],
+                qd["out"])
+    launches["cli_default"] = qd["launches"]
     if index:
         launches["index_g"] = phase_index(q, workdir, half_fa,
                                           qc["out"])["launches"]
@@ -2034,6 +2251,9 @@ def main(argv=None) -> int:
     def add(path, counts):
         for n, c in counts.items():
             launches[n][path] = c
+
+    align_launches, arows = phase_align(torch, dev)
+    add("align", align_launches)
 
     with tempfile.TemporaryDirectory(prefix="ratatosk_smoke_") as workdir:
         sl = run_slice(dev, args.genome_bp, args.long_reads, workdir, smi)
@@ -2092,6 +2312,10 @@ def main(argv=None) -> int:
                frows["finish_bundle_kernel"], 256),
         record("sprint_rows", "ratatosk_tpu_torch/csrc/sprint.cu",
                "ratatosk_tpu/ops/sprint_pallas.py:58", krows, 257),
+        # the JAX package's plain edit distance (no Pallas kernel);
+        # headline: the engine's widest bucket shape
+        record("edit_distance_kernel", "ratatosk_tpu_torch/csrc/align.cu",
+               "ratatosk_tpu/ops/align.py:68", arows, "128x5376x5376 SHW"),
     ] + ([] if args.mesh_only else [
         # the device planner's dispatches (plain JAX in the reference, no
         # Pallas kernel); headline: the k=31 graph's first read batch

@@ -185,6 +185,19 @@ def region_arrays(specs: List["RegionSpec"], nt: int, color_cap: int, *,
         max_plen=max_plen, tgt_qual=tgt_qual, end_cyclic=end_cyc), lmax
 
 
+def make_region_batch(specs: List["RegionSpec"], nt: int, color_cap: int, *,
+                      mirrored: bool = False, r_pad: Optional[int] = None,
+                      len_factor: float = 0.25, device):
+    """Pack RegionSpecs into a padded RegionBatch on `device`:
+    region_arrays, then one upload per field.
+
+    Returns (RegionBatch, lmax). Padding rows are inert (tgt_len=1, open).
+    """
+    arrays, lmax = region_arrays(specs, nt, color_cap, mirrored=mirrored,
+                                 r_pad=r_pad, len_factor=len_factor)
+    return BM.RegionBatch.from_numpy(arrays, torch.device(device)), lmax
+
+
 @dataclasses.dataclass
 class RegionSpec:
     read_idx: int

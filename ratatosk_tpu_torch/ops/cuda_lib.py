@@ -51,6 +51,10 @@ SIGNATURES = {
     # device, stream
     "plan_runs_launch": (_I, [_P, _I, _P, _I, _I, _P]),
     "plan_probe_launch": (_I, [_P, _I, _P, _I, _I, _P]),
+    # csrc/align.cu: pointer table, its length, int table, its length,
+    # device, stream
+    "edit_distance_launch": (_I, [_P, _I, _P, _I, _I, _P]),
+    "edit_distance_max_width": (_I, []),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -131,7 +135,8 @@ def library() -> ctypes.CDLL:
     its source, must equal its wrapper module's MAX_WIDTH (what the wrapper
     and the Corrector test against): checked here, once."""
     global _lib
-    from ratatosk_tpu_torch.ops import beam_kernel, finish_kernel, sprint
+    from ratatosk_tpu_torch.ops import (align_kernel, beam_kernel,
+                                        finish_kernel, sprint)
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library()))
@@ -141,7 +146,8 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = args
             for export, mod in (("beam_search_max_width", beam_kernel),
                                 ("finish_bundle_max_width", finish_kernel),
-                                ("sprint_rows_max_width", sprint)):
+                                ("sprint_rows_max_width", sprint),
+                                ("edit_distance_max_width", align_kernel)):
                 if getattr(lib, export)() != mod.MAX_WIDTH:
                     raise RuntimeError(
                         f"{export}() is {getattr(lib, export)()}, "

@@ -4,7 +4,8 @@ Counterpart of ratatosk_tpu/parallel/sharded_index.py. For an index that
 outgrows one device (the reference needs a 448 GB node for human), the
 sorted canonical-key array is split into equal contiguous ranges: slot i
 holds keys [i*per, (i+1)*per) on its device. A lookup binary-searches every
-shard for the whole query batch with the reference's fixed step count; keys
+shard for the whole query batch with the reference's fixed step count
+(ops/kmer_index.search, as the one-device lookup does); keys
 are sorted, so a query hits at most one shard and misses answer -1. The
 per-shard answers move to slot 0's device and a max combines them (the
 reference's `pmax`).
@@ -26,16 +27,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ratatosk_tpu_torch.ops.kmer_index import KmerIndex
+from ratatosk_tpu_torch.ops.kmer_index import KmerIndex, search, signed
 from ratatosk_tpu_torch.parallel.mesh import Mesh
-
-_FLIP = np.uint64(1 << 63)
-
-
-def _signed(keys) -> np.ndarray:
-    """uint64 keys -> int64 whose signed order is the keys' unsigned order."""
-    return (np.asarray(keys, dtype=np.uint64) ^ _FLIP).view(np.int64)
-
 
 class ShardedKmerIndex:
     """Sorted key array split into equal contiguous ranges over a mesh's
@@ -59,8 +52,8 @@ class ShardedKmerIndex:
             return [torch.from_numpy(x[i * per:(i + 1) * per].copy()).to(dev)
                     for i, dev in enumerate(mesh.devices)]
 
-        self.keys = shards(index.keys_lo, maxkey, _signed)
-        self.keys_hi = (shards(index.keys_hi, maxkey, _signed)
+        self.keys = shards(index.keys_lo, maxkey, signed)
+        self.keys_hi = (shards(index.keys_hi, maxkey, signed)
                         if self.two_word else None)
         self.uid = shards(index.unitig_id.astype(np.int32), -1)
         self.pos = shards(index.pos.astype(np.int32), 0)
@@ -69,25 +62,10 @@ class ShardedKmerIndex:
     def _local(self, i: int, q_lo: torch.Tensor, q_hi: Optional[torch.Tensor]):
         """Shard i's answers (uid, pos, strand) for the whole batch, -1 where
         the key is not in the shard."""
-        per = self.per
-        k = self.keys[i]
-        kh = self.keys_hi[i] if self.two_word else None
-        steps = max(1, int(np.ceil(np.log2(per + 1))))
-        lo = torch.zeros(q_lo.shape, dtype=torch.int64, device=q_lo.device)
-        hi = torch.full(q_lo.shape, per, dtype=torch.int64, device=q_lo.device)
-        for _ in range(steps):
-            mid = (lo + hi) >> 1
-            m = torch.clamp(mid, max=per - 1)
-            if kh is not None:
-                km = kh[m]
-                go = (km < q_hi) | ((km == q_hi) & (k[m] < q_lo))
-            else:
-                go = k[m] < q_lo
-            lo, hi = torch.where(go, mid + 1, lo), torch.where(go, hi, mid)
-        safe = torch.clamp(lo, max=per - 1)
-        found = (lo < per) & (k[safe] == q_lo)
-        if kh is not None:
-            found = found & (kh[safe] == q_hi)
+        safe, found = search(self.keys[i],
+                             self.keys_hi[i] if self.two_word else None,
+                             q_lo, q_hi)
+        safe = safe.long()
         miss = torch.tensor(-1, dtype=torch.int32, device=q_lo.device)
         return tuple(torch.where(found, a[i][safe], miss)
                      for a in (self.uid, self.pos, self.strand))
@@ -102,8 +80,8 @@ class ShardedKmerIndex:
         if self.per == 0:
             miss = torch.full((len(q_lo),), -1, dtype=torch.int32, device=dev0)
             return miss, miss.clone(), miss.clone()
-        lo_h = torch.from_numpy(_signed(q_lo))
-        hi_h = torch.from_numpy(_signed(q_hi)) if self.two_word else None
+        lo_h = torch.from_numpy(signed(q_lo))
+        hi_h = torch.from_numpy(signed(q_hi)) if self.two_word else None
         parts = []
         for i, dev in enumerate(self.mesh.devices):
             res = self._local(i, lo_h.to(dev),

@@ -35,13 +35,16 @@ and the hand-off (all-gather, merge, pass-2 index, SNP detection, barriers)
 apart; the host's usable cores; every card's name and power limit.
 
 Checks, each of which raises: every N and every M writes the same pass-1 and
-final FASTQ (sha256); the final error on the first 400 reads is below a fifth
-of the raw error; on the card every process and every mesh pass launched the
-fused beam and finish kernels. It runs on the card: without one, or with an
-N or M above the visible cards, it raises before any work (--device cpu is
-for the tests: gloo processes on the CPU, mesh slots on the CPU). Progress
-goes to stderr; the JSON result is the last line of stdout and is written
-to --out (default chiprun_out/dist_scale.json).
+final FASTQ (sha256), and where ratatosk_tpu_torch/data/jax_digests.json
+holds the JAX package's digests of this data and these flags (cli_default,
+cli_small), the JAX package's (jax_match); the final error on the first 400
+reads is below a fifth of the raw error; on the card every process and
+every mesh pass launched the fused beam and finish kernels. It runs on the
+card: without one, or with an N or M above the visible cards, it raises
+before any work (--device cpu is for the tests: gloo processes on the CPU,
+mesh slots on the CPU). Progress goes to stderr; the JSON result is the
+last line of stdout and is written to --out (default
+chiprun_out/dist_scale.json).
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 import bench_torch  # noqa: E402
-from ratatosk_tpu_torch import dna  # noqa: E402
+from ratatosk_tpu_torch import digests, dna  # noqa: E402
 
 DEFAULT_OUT = ROOT / "chiprun_out" / "dist_scale.json"
 # bench.py's options, as the `correct` command's flags (-c 2: two threads)
@@ -102,16 +105,21 @@ def check_device(device: str, procs: list, mesh: list) -> None:
         raise RuntimeError(f"{top} cards asked for, {visible} visible")
 
 
+def flags(**options) -> list:
+    """The `correct` flags that set a run's options (OPTIONS, with
+    `options` over them): its key among the JAX package's digests."""
+    o = dict(OPTIONS, **options)
+    return ["-c", str(o["cores"]), "-k", str(o["k1"]), "-K", str(o["k2"]),
+            "--beam-width", str(o["beam_width"]),
+            "--batch-regions", str(o["batch_regions"]), "--devices", "1"]
+
+
 def cli_argv(short_fa: str, long_fq: str, out: str, trace=None,
              **options) -> list:
-    """The `correct` flags of one run: bench.py's options over OPTIONS, and
-    the trace file when given."""
-    o = dict(OPTIONS, **options)
-    return ["-s", short_fa, "-l", long_fq, "-o", out, "-c", str(o["cores"]),
-            "-k", str(o["k1"]), "-K", str(o["k2"]),
-            "--beam-width", str(o["beam_width"]),
-            "--batch-regions", str(o["batch_regions"]), "--devices", "1",
-            "-v"] + (["--trace-json", trace] if trace else [])
+    """The `correct` flags of one run: the files, flags(**options), and the
+    trace file when given."""
+    return (["-s", short_fa, "-l", long_fq, "-o", out, *flags(**options),
+             "-v"] + (["--trace-json", trace] if trace else []))
 
 
 def free_port() -> int:
@@ -550,6 +558,17 @@ def run(size_args=(), *, procs=(1, 2, 4), mesh_sizes=(1, 2, 4),
     shas = {json.dumps(r["sha256"], sort_keys=True) for r in rows + mrows}
     if len(shas) != 1:
         raise AssertionError(f"the runs' FASTQ differ: {shas}")
+    # held to the JAX package's digests of this data and these flags (a
+    # mismatch raises)
+    jax_entry = digests.check(
+        "cli", bench_torch.data_rule(size_args, seed), flags(**options),
+        lambda: {"short.fa": digests.file_sha256(data["short_fa"]),
+                 "long.fq": digests.file_sha256(data["long_fq"])},
+        json.loads(next(iter(shas))))
+    jax_match = None if jax_entry is None else True
+    log("no JAX package digests for this data and these flags"
+        if jax_entry is None else
+        f"FASTQ equal to the JAX package's (entry {jax_entry})")
     final = (rows[0]["final_fastq"] if rows else
              os.path.join(workdir, "mesh", f"out.mesh{mesh_sizes[0]}.fastq"))
     p1 = final[:-len(".fastq")] + ".2.fastq"
@@ -575,6 +594,8 @@ def run(size_args=(), *, procs=(1, 2, 4), mesh_sizes=(1, 2, 4),
         "options": dict(OPTIONS, **options),
         "scatter": rows, "mesh": mrows,
         "fastq_sha256": json.loads(shas.pop()), "error": err,
+        "jax_entry": jax_entry,
+        "jax_match": jax_match,
         "kernel_build_s": build_s, "simulate_s": simulate_s,
         "total_wall_s": time.time() - t_all}
 

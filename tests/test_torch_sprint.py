@@ -95,7 +95,7 @@ def _fake_library(**widths):
     *_max_width exports returning the wrappers' caps (or `widths`)."""
     import types
 
-    from ratatosk_tpu_torch.ops import beam_kernel, finish_kernel
+    from ratatosk_tpu_torch.ops import align_kernel, beam_kernel, finish_kernel
 
     def entry(value=None):
         def fn(*args):
@@ -103,14 +103,16 @@ def _fake_library(**widths):
         return fn
     caps = dict(dict(sprint_rows_max_width=SP.MAX_WIDTH,
                      beam_search_max_width=beam_kernel.MAX_WIDTH,
-                     finish_bundle_max_width=finish_kernel.MAX_WIDTH),
+                     finish_bundle_max_width=finish_kernel.MAX_WIDTH,
+                     edit_distance_max_width=align_kernel.MAX_WIDTH),
                 **widths)
     return types.SimpleNamespace(**{
         name: entry(caps.get(name)) for name in (
             "sprint_rows_launch", "sprint_rows_max_width",
             "beam_search_launch", "beam_search_max_width",
             "finish_bundle_launch", "finish_bundle_max_width",
-            "plan_runs_launch", "plan_probe_launch")})
+            "plan_runs_launch", "plan_probe_launch",
+            "edit_distance_launch", "edit_distance_max_width")})
 
 
 def test_library_load_refuses_a_width_cap_its_wrapper_does_not_share(
