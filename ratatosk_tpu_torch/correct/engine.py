@@ -33,13 +33,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time as _time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ratatosk_tpu_torch import dna
+from ratatosk_tpu_torch import trace as TR
 from ratatosk_tpu_torch.config import CorrectOpt
 from ratatosk_tpu_torch.correct import beam as BM
 from ratatosk_tpu_torch.correct import finish as FN
@@ -341,10 +341,11 @@ class Corrector:
         self._splice_pending: list = []
         self.qv_max = self.opt.max_qual
         self._cur_hap = -1   # haplotype of the read being planned
-        # wall-time breakdown (seconds), for bench/verbose reporting. With a
-        # mesh, "launch" is the queueing of the slots' work and "finish"
-        # includes waiting for it. "wait": pipeline.correct_file's double
-        # buffer waiting for the next batch's plan
+        # wall-time breakdown (seconds), for bench/verbose reporting, fed
+        # by the spans of the same names (trace.py). With a mesh, "launch"
+        # is the queueing of the slots' work and "finish" includes waiting
+        # for it. "wait": pipeline.correct_file's double buffer waiting for
+        # the next batch's plan
         self.timers = {"plan": 0.0, "launch": 0.0, "finish": 0.0,
                        "wait": 0.0}
 
@@ -515,60 +516,64 @@ class Corrector:
         per-span probe loop was the dominant host cost.
         """
         opt = self.opt
-        probe = self._probe()
-        runs_raw = None
-        if self.devplan is not None:
-            runs_raw = self.devplan.collect_runs(
-                self.devplan.dispatch_runs(reads))
-        if runs_raw is None:
-            runs_raw = [find_runs(self.cdbg, r, probe=probe) for r in reads]
-        runs_list = [filter_runs_by_color(rr, self.colors)
-                     for rr in runs_raw]
+        with TR.span("plan.runs"):
+            probe = self._probe()
+            runs_raw = None
+            if self.devplan is not None:
+                runs_raw = self.devplan.collect_runs(
+                    self.devplan.dispatch_runs(reads))
+            if runs_raw is None:
+                runs_raw = [find_runs(self.cdbg, r, probe=probe)
+                            for r in reads]
+            runs_list = [filter_runs_by_color(rr, self.colors)
+                         for rr in runs_raw]
         wps_list: List[List[SolidRun]] = [[] for _ in reads]
         if not opt.use_weak_seeds:
             return runs_list, wps_list
         k = self.cdbg.k
-        min_gap = opt.weak_seed_min_gap
-        requests = []   # (read_idx, a, b, (uid1, uid2))
-        for i, (codes, runs) in enumerate(zip(reads, runs_list)):
-            if not runs:
-                continue
-            q = quals[i] if quals is not None else None
-            self._max_q = q if (q is not None
-                                and opt.skip_max_quality_regions) else None
-            L = len(codes)
-            r0, last = runs[0], runs[-1]
-            spans = [(0, r0.s, (r0.uid, -1))]
-            for run, nxt in zip(runs, runs[1:]):
-                spans.append((run.e + (run.rspan or k), nxt.s + k,
-                              (run.uid, nxt.uid)))
-            spans.append((last.e + (last.rspan or k), L, (last.uid, -1)))
-            for a, b, fl in spans:
-                if b - a < min_gap or self._span_max_quality(a, b):
+        with TR.span("plan.probe"):
+            min_gap = opt.weak_seed_min_gap
+            requests = []   # (read_idx, a, b, (uid1, uid2))
+            for i, (codes, runs) in enumerate(zip(reads, runs_list)):
+                if not runs:
                     continue
-                requests.append((i, a, b, fl))
-        self._max_q = None
-        if not requests:
-            return runs_list, wps_list
-        spans3 = [(r[0], r[1], r[2]) for r in requests]
-        seeds_per_span = None
-        if self.devplan is not None:
-            seeds_per_span = self.devplan.collect_probe(
-                self.devplan.dispatch_probe(
-                    reads, spans3, stride=opt.weak_seed_stride,
-                    near_exact_skip=_NEAR_EXACT_SKIP))
-        if seeds_per_span is None:
-            seeds_per_span = find_weak_seeds_batch(
-                self.cdbg, reads, spans3, stride=opt.weak_seed_stride)
-        for (i, a, b, fl), seeds in zip(requests, seeds_per_span):
-            if not seeds:
-                continue
-            self._cur_hap = haps[i]
-            flank = self._region_colors(fl[0], fl[1])
-            wps_list[i].extend(select_waypoints(
-                seeds, self.colors, flank, min_cov=opt.min_cov_vertices,
-                min_space=opt.weak_seed_min_space, lo=a, hi=b - k))
-        self._cur_hap = -1
+                q = quals[i] if quals is not None else None
+                self._max_q = q if (q is not None
+                                    and opt.skip_max_quality_regions) else None
+                L = len(codes)
+                r0, last = runs[0], runs[-1]
+                spans = [(0, r0.s, (r0.uid, -1))]
+                for run, nxt in zip(runs, runs[1:]):
+                    spans.append((run.e + (run.rspan or k), nxt.s + k,
+                                  (run.uid, nxt.uid)))
+                spans.append((last.e + (last.rspan or k), L, (last.uid, -1)))
+                for a, b, fl in spans:
+                    if b - a < min_gap or self._span_max_quality(a, b):
+                        continue
+                    requests.append((i, a, b, fl))
+            self._max_q = None
+            if not requests:
+                return runs_list, wps_list
+            spans3 = [(r[0], r[1], r[2]) for r in requests]
+            seeds_per_span = None
+            if self.devplan is not None:
+                seeds_per_span = self.devplan.collect_probe(
+                    self.devplan.dispatch_probe(
+                        reads, spans3, stride=opt.weak_seed_stride,
+                        near_exact_skip=_NEAR_EXACT_SKIP))
+            if seeds_per_span is None:
+                seeds_per_span = find_weak_seeds_batch(
+                    self.cdbg, reads, spans3, stride=opt.weak_seed_stride)
+        with TR.span("plan.waypoints"):
+            for (i, a, b, fl), seeds in zip(requests, seeds_per_span):
+                if not seeds:
+                    continue
+                self._cur_hap = haps[i]
+                flank = self._region_colors(fl[0], fl[1])
+                wps_list[i].extend(select_waypoints(
+                    seeds, self.colors, flank, min_cov=opt.min_cov_vertices,
+                    min_space=opt.weak_seed_min_space, lo=a, hi=b - k))
+            self._cur_hap = -1
         return runs_list, wps_list
 
     def _splice_iupac(self, run, splice: np.ndarray, tgt: np.ndarray,
@@ -878,40 +883,40 @@ class Corrector:
                     by_bucket.setdefault((nt, mirrored, rnd), []).append(i)
                 chunk = max(self.opt.batch_regions, 8)
                 launched = []
-                t0 = _time.time()
-                for (nt, mirrored, rnd), items in by_bucket.items():
-                    beam = self.opt.beam_width * (1 << (rnd - 1))
-                    # sort by target length: the while_loop exits when every
-                    # entry is frozen, so homogeneous chunks stop at ~1.25x
-                    # their own longest region instead of the bucket's worst
-                    # case
-                    items.sort(key=lambda i: tgt_len(i, mirrored))
-                    for c0 in range(0, len(items), chunk):
-                        idxs = items[c0:c0 + chunk]
-                        read, lmax = self._launch_bucket(
-                            [regions[i] for i in idxs], nt, mirrored,
-                            beam=beam, pool=pool)
-                        launched.append((idxs, mirrored, rnd, read, lmax))
-                self.timers["launch"] += _time.time() - t0
+                with TR.span("launch", self.timers):
+                    for (nt, mirrored, rnd), items in by_bucket.items():
+                        beam = self.opt.beam_width * (1 << (rnd - 1))
+                        # sort by target length: the while_loop exits when
+                        # every entry is frozen, so homogeneous chunks stop
+                        # at ~1.25x their own longest region instead of the
+                        # bucket's worst case
+                        items.sort(key=lambda i: tgt_len(i, mirrored))
+                        for c0 in range(0, len(items), chunk):
+                            idxs = items[c0:c0 + chunk]
+                            read, lmax = self._launch_bucket(
+                                [regions[i] for i in idxs], nt, mirrored,
+                                beam=beam, pool=pool)
+                            launched.append((idxs, mirrored, rnd, read,
+                                             lmax))
                 retry = []
-                t0 = _time.time()
-                for idxs, mirrored, rnd, read, lmax in launched:
-                    # the two result arrays of the launch, sliced on the host
-                    scal, packed = read()
-                    scal = scal[:len(idxs)]
-                    seqs = FN.unpack_codes(packed[:len(idxs)], lmax)
-                    for j, i in enumerate(idxs):
-                        sp = regions[i]
-                        final = mirrored and rnd >= rounds
-                        ok = self._finish_region(sp, scal[j], seqs[j],
-                                                 mirrored, final)
-                        if ok or sp.kind != "gap" or not sp.mirror:
-                            continue
-                        if not mirrored:
-                            retry.append((i, True, rnd))
-                        elif rnd < rounds:
-                            retry.append((i, False, rnd + 1))
-                self.timers["finish"] += _time.time() - t0
+                with TR.span("finish", self.timers):
+                    for idxs, mirrored, rnd, read, lmax in launched:
+                        # the two result arrays of the launch, sliced on the
+                        # host
+                        scal, packed = read()
+                        scal = scal[:len(idxs)]
+                        seqs = FN.unpack_codes(packed[:len(idxs)], lmax)
+                        for j, i in enumerate(idxs):
+                            sp = regions[i]
+                            final = mirrored and rnd >= rounds
+                            ok = self._finish_region(sp, scal[j], seqs[j],
+                                                     mirrored, final)
+                            if ok or sp.kind != "gap" or not sp.mirror:
+                                continue
+                            if not mirrored:
+                                retry.append((i, True, rnd))
+                            elif rnd < rounds:
+                                retry.append((i, False, rnd + 1))
                 pending = retry
 
     def _finish_region(self, sp: RegionSpec, scal: np.ndarray,
@@ -1173,21 +1178,23 @@ class Corrector:
         worker-pool structure, Ratatosk.cpp:618-909)."""
         regions: List[RegionSpec] = []
         plans = []
-        t0 = _time.time()
-        reads_np = [np.asarray(r, dtype=np.uint8) for r in reads]
-        haps = [(self.hap.hap_of(names[i])
-                 if self.hap is not None and names is not None else -1)
-                for i in range(len(reads))]
-        runs_list, wps_list = self._plan_seeds(reads_np, quals, haps)
-        self._splice_pending = []
-        for i, r in enumerate(reads_np):
-            self._cur_hap = haps[i]
-            q = quals[i] if quals is not None else None
-            plans.append(self._plan_read(i, r, regions, qual=q,
-                                         runs=runs_list[i], wps=wps_list[i]))
-        self._cur_hap = -1
-        self._resolve_splices()
-        self.timers["plan"] += _time.time() - t0
+        with TR.span("plan", self.timers):
+            reads_np = [np.asarray(r, dtype=np.uint8) for r in reads]
+            haps = [(self.hap.hap_of(names[i])
+                     if self.hap is not None and names is not None else -1)
+                    for i in range(len(reads))]
+            runs_list, wps_list = self._plan_seeds(reads_np, quals, haps)
+            self._splice_pending = []
+            with TR.span("plan.reads"):
+                for i, r in enumerate(reads_np):
+                    self._cur_hap = haps[i]
+                    q = quals[i] if quals is not None else None
+                    plans.append(self._plan_read(i, r, regions, qual=q,
+                                                 runs=runs_list[i],
+                                                 wps=wps_list[i]))
+                self._cur_hap = -1
+            with TR.span("plan.splices"):
+                self._resolve_splices()
         return reads_np, plans, regions
 
     def _resolve_splices(self) -> None:
@@ -1208,9 +1215,10 @@ class Corrector:
     def assemble_batch(self, reads_np, quals, plans, regions
                        ) -> List[CorrectedRead]:
         out = []
-        for i, (codes, segs) in enumerate(zip(reads_np, plans)):
-            rq = None if quals is None else quals[i]
-            out.append(self._assemble(codes, rq, segs, regions))
+        with TR.span("assemble"):
+            for i, (codes, segs) in enumerate(zip(reads_np, plans)):
+                rq = None if quals is None else quals[i]
+                out.append(self._assemble(codes, rq, segs, regions))
         return out
 
     def correct_batch(self, reads: Sequence[np.ndarray],

@@ -16,6 +16,8 @@ on a mesh over that many CUDA devices (`local_mesh`).
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import sys
 import time
 from typing import Iterable, List, Optional, Tuple
@@ -31,6 +33,10 @@ from ratatosk_tpu_torch.graph import io as GIO
 from ratatosk_tpu_torch.graph.colors import color_graph
 from ratatosk_tpu_torch.io import fastx
 from ratatosk_tpu_torch import trace as TR
+
+# batches a pass with --trace-json writes at a time: the events and spans
+# of its finished batches, so the recorder holds at most this many
+TRACE_EVERY = 64
 
 
 def _log(opt: CorrectOpt, msg: str) -> None:
@@ -188,6 +194,7 @@ def build_pass1_index(opt: CorrectOpt,
                          sampling_rate=opt.sampling_rate,
                          auto_subsample=opt.auto_subsample,
                          spill_bytes=opt.spill_bytes)
+    _graph_build_event(opt, 1, cdbg, t0)
     return cdbg, colors
 
 
@@ -204,9 +211,8 @@ def rescue_edges_pass1(opt: CorrectOpt, cdbg, colors,
                            min_cov=opt.min_cov_vertices)
     _log(opt, f"pass 1: rescued {n} low-coverage edges from the k{opt.k} "
               f"graph ({time.time() - t0:.1f}s)")
-    tr = TR.make(opt.trace_json)
-    tr.event("rescue", edges=n, secs=round(time.time() - t0, 3))
-    tr.close()
+    TR.make(opt.trace_json).event("rescue", edges=n,
+                                  secs=round(time.time() - t0, 3))
     return cdbg2
 
 
@@ -225,6 +231,7 @@ def build_pass2_index(opt: CorrectOpt,
     if short_reads is None:
         short_reads, read_ids, _ = load_short_reads(opt)
     k = opt.k
+    t0 = time.time()
     if prebuilt_cdbg is not None:
         cdbg = prebuilt_cdbg
     else:
@@ -248,7 +255,16 @@ def build_pass2_index(opt: CorrectOpt,
                          cap=opt.max_cov_vertices,
                          min_cov_edge=opt.min_cov_vertices,
                          spill_bytes=opt.spill_bytes)
+    _graph_build_event(opt, 2, cdbg, t0)
     return cdbg, colors
+
+
+def _graph_build_event(opt: CorrectOpt, pass_no: int, cdbg, t0: float
+                       ) -> None:
+    """The trace's graph_build event of a pass's index, built since t0."""
+    TR.make(opt.trace_json).event(
+        "graph_build", pass_no=pass_no, k=cdbg.k, unitigs=cdbg.n_unitigs,
+        kmers=cdbg.index.n, secs=round(time.time() - t0, 3))
 
 
 def correct_file(corrector: Corrector, opt: CorrectOpt, in_paths: List[str],
@@ -261,109 +277,156 @@ def correct_file(corrector: Corrector, opt: CorrectOpt, in_paths: List[str],
     input read is rephased against its raw mate — phase-inconsistent pass-1
     segments are spliced back to raw (phasing(), Graph.cpp:869-1097,
     Ratatosk.cpp:774-836).
+
+    The call is one `job` span (trace.py) and each batch's reading, wait,
+    launches, finishes, assembly and writing are its children, on this
+    thread, and so is the batch's plan, on the planner thread. With
+    --trace-json the pass records its spans and writes them with its batch
+    events every TRACE_EVERY batches, and the rest, with pass_done, at its
+    end (without pass_done when it raises).
     """
     n_reads = n_bases = 0
-    writer = fastx.FastqWriter(out_path, trim_qual=trim_qual, min_len=opt.k)
     n_rephased = 0
     tracer = TR.make(opt.trace_json)
+    batch_events = []   # (ts, fields): seconds from the batch's spans later
+    written = 0         # batches whose events and spans are written
     t_pass0 = time.time()
 
     def batches():
+        # one `read` span a batch: parsing, rephasing and batching its reads
         nonlocal n_rephased
-        batch_reads: List[np.ndarray] = []
-        batch_quals: List[Optional[np.ndarray]] = []
-        batch_names: List[str] = []
-        bp = 0
-        for rec in fastx.read_many(_expand_file_lists(in_paths)):
-            codes, qual = rec.codes, rec.qual
-            if raw_reads is not None:
-                raw = raw_reads.get(rec.name)
-                if raw is None:
-                    # the reference hard-aborts on raw/corrected pairing
-                    # mismatch (Ratatosk.cpp:786-800)
-                    raise SystemExit(
-                        f"-L raw read missing for '{rec.name}': raw and "
-                        f"corrected inputs must contain the same reads")
-                from ratatosk_tpu_torch.graph import rephase as RP
-                codes, qual, n = RP.rephase_read(
-                    corrector.cdbg, corrector.colors, raw, codes, qual,
-                    insert_sz=opt.insert_sz)
-                n_rephased += n
-            batch_reads.append(codes)
-            batch_quals.append(qual)
-            batch_names.append(rec.name)
-            bp += len(codes)
-            if bp >= opt.read_batch_bp:
-                yield batch_reads, batch_quals, batch_names
-                batch_reads, batch_quals, batch_names, bp = [], [], [], 0
-        if batch_reads:
+        recs = iter(fastx.read_many(_expand_file_lists(in_paths)))
+        for b in itertools.count():
+            batch_reads: List[np.ndarray] = []
+            batch_quals: List[Optional[np.ndarray]] = []
+            batch_names: List[str] = []
+            bp = 0
+            with TR.span("read", batch=b):
+                for rec in recs:
+                    codes, qual = rec.codes, rec.qual
+                    if raw_reads is not None:
+                        raw = raw_reads.get(rec.name)
+                        if raw is None:
+                            # the reference hard-aborts on raw/corrected
+                            # pairing mismatch (Ratatosk.cpp:786-800)
+                            raise SystemExit(
+                                f"-L raw read missing for '{rec.name}': raw "
+                                f"and corrected inputs must contain the same "
+                                f"reads")
+                        from ratatosk_tpu_torch.graph import rephase as RP
+                        codes, qual, n = RP.rephase_read(
+                            corrector.cdbg, corrector.colors, raw, codes,
+                            qual, insert_sz=opt.insert_sz)
+                        n_rephased += n
+                    batch_reads.append(codes)
+                    batch_quals.append(qual)
+                    batch_names.append(rec.name)
+                    bp += len(codes)
+                    if bp >= opt.read_batch_bp:
+                        break
+            if not batch_reads:
+                return
             yield batch_reads, batch_quals, batch_names
 
-    def emit(names, results):
+    def emit(b, names, results, n_regions):
         nonlocal n_reads, n_bases
         nb = 0
-        for name, cr in zip(names, results):
-            if opt.fix_snps and pass_no == 2:
-                corrector.resolve_iupac(cr)   # fixSNPs, Alignment.cpp:846-965
-            writer.write(name, cr.codes, cr.qual, cr.iupac)
-            n_reads += 1
-            nb += len(cr.codes)
+        with TR.span("write"):
+            for name, cr in zip(names, results):
+                if opt.fix_snps and pass_no == 2:
+                    corrector.resolve_iupac(cr)   # fixSNPs, Alignment.cpp:846-965
+                writer.write(name, cr.codes, cr.qual, cr.iupac)
+                nb += len(cr.codes)
+        n_reads += len(names)
         n_bases += nb
-        extra = {}
-        if corrector.devplan is not None:
-            # devplan capacity-overflow fallbacks: nonzero means batches
-            # were planned on the host planner
-            extra["devplan_fallbacks"] = corrector.devplan.n_fallback
-        tracer.event("batch", pass_no=pass_no, reads=len(names), bases=nb,
-                     plan_s=round(corrector.timers["plan"], 3),
-                     launch_s=round(corrector.timers["launch"], 3),
-                     finish_s=round(corrector.timers["finish"], 3), **extra)
+        if opt.trace_json:
+            extra = {}
+            if corrector.devplan is not None:
+                # devplan capacity-overflow fallbacks: nonzero means batches
+                # were planned on the host planner
+                extra["devplan_fallbacks"] = corrector.devplan.n_fallback
+            batch_events.append((time.time(), dict(
+                pass_no=pass_no, batch=b, reads=len(names), bases=nb,
+                regions=n_regions, **extra)))
+            if (b + 1) % TRACE_EVERY == 0:
+                trace_out(b + 1)
 
-    def plan(batch):
+    def trace_out(hi=None, tail=()):
+        # writes the batch events and spans of the batches from `written`
+        # to hi - 1 (with hi None: all that are left, the job's own span
+        # and `tail`); every span of those batches has closed
+        nonlocal written
+        spans = rec.take(job.id, written, hi)
+        secs = TR.seconds_by_batch(spans, ("plan", "launch", "finish"))
+        out = []
+        while batch_events and (hi is None
+                                or batch_events[0][1]["batch"] < hi):
+            ts, fields = batch_events.pop(0)
+            per = secs.get(fields["batch"], {})
+            out.append(TR.record("batch", ts, **fields, **{
+                f"{k}_s": round(per.get(k, 0.0), 3)
+                for k in ("plan", "launch", "finish")}))
+        out += tail
+        out += [TR.record("span", sp.t1 / 1e9, **sp.as_dict())
+                for sp in spans]
+        tracer.write(out)
+        written = hi
+
+    def plan(batch, b):
+        # on the planner thread (or this one, with one thread), its parent
+        # span handed over
         reads, quals_b, names = batch
         quals = quals_b if any(q is not None for q in quals_b) else None
-        return (names, quals,
-                corrector.plan_batch(reads, quals, names))
+        with TR.within(job, b):
+            return (names, quals,
+                    corrector.plan_batch(reads, quals, names))
 
-    if opt.nb_threads > 1:
-        # double-buffer (the reference's worker-pool streaming loop,
-        # Ratatosk.cpp:618-909): a worker thread plans batch N+1 while this
-        # thread drives the device for batch N — numpy planning and the
-        # device waits both release the GIL
-        from concurrent.futures import ThreadPoolExecutor
-
-        def planned(fut):
-            # timers["wait"]: how long this thread waits for the planner
-            t0 = time.time()
-            out = fut.result()
-            corrector.timers["wait"] += time.time() - t0
-            return out
-
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            fut = None
-            for batch in batches():
-                nxt = pool.submit(plan, batch)
-                if fut is not None:
-                    names, quals, (reads_np, plans, regions) = planned(fut)
-                    corrector._execute_regions(regions)
-                    emit(names, corrector.assemble_batch(reads_np, quals,
-                                                         plans, regions))
-                fut = nxt
+    def drive(b, planned=None, fut=None):
+        # batch b on this thread: the wait for its plan (the double
+        # buffer's, timers["wait"]), its launches and finishes, assembly and
+        # writing
+        with TR.within(job, b):
             if fut is not None:
-                names, quals, (reads_np, plans, regions) = planned(fut)
-                corrector._execute_regions(regions)
-                emit(names, corrector.assemble_batch(reads_np, quals,
-                                                     plans, regions))
-    else:
-        for batch in batches():
-            names, quals, (reads_np, plans, regions) = plan(batch)
+                with TR.span("wait", corrector.timers) as span:
+                    planned = fut.result()
+                    if span:
+                        span.set("first", int(b == 0))
+            names, quals, (reads_np, plans, regions) = planned
             corrector._execute_regions(regions)
-            emit(names, corrector.assemble_batch(reads_np, quals, plans,
-                                                 regions))
-    writer.close()
-    tracer.event("pass_done", pass_no=pass_no, reads=n_reads, bases=n_bases,
-                 secs=round(time.time() - t_pass0, 3))
-    tracer.close()
+            emit(b, names, corrector.assemble_batch(reads_np, quals, plans,
+                                                    regions), len(regions))
+
+    done = []   # the pass_done event, once the pass has ended
+    try:
+        with (TR.recording() if opt.trace_json
+              else contextlib.nullcontext()) as rec, TR.span("job") as job:
+            writer = fastx.FastqWriter(out_path, trim_qual=trim_qual,
+                                       min_len=opt.k)
+            if opt.nb_threads > 1:
+                # double-buffer (the reference's worker-pool streaming loop,
+                # Ratatosk.cpp:618-909): a worker thread plans batch N+1
+                # while this thread drives the device for batch N — numpy
+                # planning and the device waits both release the GIL
+                from concurrent.futures import ThreadPoolExecutor
+                with ThreadPoolExecutor(max_workers=1) as pool:
+                    fut = None
+                    for b, batch in enumerate(batches()):
+                        nxt = pool.submit(plan, batch, b)
+                        if fut is not None:
+                            drive(b - 1, fut=fut)
+                        fut = nxt
+                    if fut is not None:
+                        drive(b, fut=fut)
+            else:
+                for b, batch in enumerate(batches()):
+                    drive(b, plan(batch, b))
+            writer.close()
+        done.append(TR.record("pass_done", pass_no=pass_no, reads=n_reads,
+                              bases=n_bases,
+                              secs=round(time.time() - t_pass0, 3)))
+    finally:
+        if opt.trace_json:
+            trace_out(tail=done)
     if raw_reads is not None:
         _log(opt, f"pass 2: rephased {n_rephased} segments (-L)")
     return n_reads, n_bases
@@ -476,9 +539,8 @@ def _detect_snps(opt: CorrectOpt, cdbg, colors):
     ann = SNP.detect_snps(cdbg, colors)
     _log(opt, f"SNP candidates: {ann.n_sites} annotated sites "
               f"({time.time() - t0:.1f}s)")
-    tr = TR.make(opt.trace_json)
-    tr.event("snp", sites=ann.n_sites, secs=round(time.time() - t0, 3))
-    tr.close()
+    TR.make(opt.trace_json).event("snp", sites=ann.n_sites,
+                                  secs=round(time.time() - t0, 3))
     return ann
 
 

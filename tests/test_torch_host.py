@@ -26,7 +26,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 COPIED = [
-    "config.py", "dna.py", "trace.py",
+    "config.py", "dna.py",
     "ops/kmers.py", "ops/colorset.py", "ops/cigar.py", "io/fastx.py",
     "graph/keys.py", "graph/build.py", "graph/colors.py", "graph/cycles.py",
     "correct/seeds.py", "correct/choose.py",
