@@ -48,11 +48,13 @@ from ratatosk_tpu_torch.correct.seeds import (SolidRun, filter_runs_by_color,
                                         find_runs, find_weak_seeds_batch,
                                         select_waypoints)
 from ratatosk_tpu_torch.correct.choose import branching_mask, choose_region_colors
+from ratatosk_tpu_torch.correct.runs_batch import find_runs_batch
 from ratatosk_tpu_torch.graph.build import Cdbg
 from ratatosk_tpu_torch.graph.colors import GraphColors
 from ratatosk_tpu_torch.ops import beam_kernel, finish_kernel, sprint
 from ratatosk_tpu_torch.ops import cigar as CG
 from ratatosk_tpu_torch.ops import colorset as CS
+from ratatosk_tpu_torch.ops import native_kmers as NK
 from ratatosk_tpu_torch.ops.finish_kernel import finish_bundle_kernel
 from ratatosk_tpu_torch.parallel import mesh as M
 
@@ -516,17 +518,25 @@ class Corrector:
         per-span probe loop was the dominant host cost.
         """
         opt = self.opt
-        with TR.span("plan.runs"):
+        with TR.span("plan.runs") as span:
             probe = self._probe()
-            runs_raw = None
-            if self.devplan is not None:
-                runs_raw = self.devplan.collect_runs(
-                    self.devplan.dispatch_runs(reads))
-            if runs_raw is None:
-                runs_raw = [find_runs(self.cdbg, r, probe=probe)
-                            for r in reads]
-            runs_list = [filter_runs_by_color(rr, self.colors)
-                         for rr in runs_raw]
+            batched = (self.devplan is None and probe is None
+                       and NK.available())
+            if batched:
+                # the host index: the whole batch in one pass
+                runs_list = find_runs_batch(self.cdbg, self.colors, reads)
+            else:
+                runs_raw = None
+                if self.devplan is not None:
+                    runs_raw = self.devplan.collect_runs(
+                        self.devplan.dispatch_runs(reads))
+                if runs_raw is None:
+                    runs_raw = [find_runs(self.cdbg, r, probe=probe)
+                                for r in reads]
+                runs_list = [filter_runs_by_color(rr, self.colors)
+                             for rr in runs_raw]
+            if span:
+                span.set("batched", int(batched))
         wps_list: List[List[SolidRun]] = [[] for _ in reads]
         if not opt.use_weak_seeds:
             return runs_list, wps_list

@@ -35,8 +35,11 @@ Event vocabulary (stable keys, additive only):
   rescue        {edges, secs}
   snp           {sites, secs}
   span          {name, id, parent, job, batch, thread, t0_ns, t1_ns, cpu_ns
-                 [, first]}: each span of the pass's job; `first` on the
-                 double buffer's `wait` spans, 1 for a job's batch 0
+                 [, first | batched]}: each span of the pass's job; `first`
+                 on the double buffer's `wait` spans, 1 for a job's batch 0;
+                 `batched` on the planner's `plan.runs` spans, 1 when the
+                 batch's exact runs were found in one pass over the batch
+                 (correct/runs_batch.py), 0 when read by read
 """
 
 from __future__ import annotations

@@ -96,9 +96,10 @@ def _tree(spans):
         assert s.job == root.id, s.name
         assert root.t0 <= s.t0 <= s.t1 <= root.t1, s.name
         assert s.cpu >= 0
-        # the one field: a wait's `first`
-        assert s.fields is None or (s.name == "wait"
-                                    and set(s.fields) == {"first"}), s.name
+        # the fields: a wait's `first`, a plan.runs' `batched`
+        assert s.fields is None or (
+            {s.name: set(s.fields)}
+            in ({"wait": {"first"}}, {"plan.runs": {"batched"}})), s.name
         if s is root:
             continue
         parent = by_id[s.parent]
