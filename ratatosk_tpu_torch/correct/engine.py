@@ -343,6 +343,9 @@ class Corrector:
         self._splice_pending: list = []
         self.qv_max = self.opt.max_qual
         self._cur_hap = -1   # haplotype of the read being planned
+        # bases the pass-2 max-quality skip left raw in the batch being
+        # planned (the plan span's maxq_bp)
+        self._maxq_bp = 0
         # wall-time breakdown (seconds), for bench/verbose reporting, fed
         # by the spans of the same names (trace.py). With a mesh, "launch"
         # is the queueing of the slots' work and "finish" includes waiting
@@ -446,6 +449,7 @@ class Corrector:
         segs: list = []
         r0 = runs[0]
         if r0.s > 0 and self._span_max_quality(0, r0.s):
+            self._maxq_bp += r0.s
             segs.append(("raw", 0, r0.s))
         elif r0.s > 0:
             # head: correct the reversed prefix from the reversed first anchor
@@ -486,6 +490,7 @@ class Corrector:
         last = runs[-1]
         ta = last.e + (last.rspan or k)
         if ta < L and self._span_max_quality(ta, L):
+            self._maxq_bp += L - ta
             segs.append(("raw", ta, L))
         elif ta < L:
             t_b = min(ta + cap_open, L)
@@ -746,6 +751,7 @@ class Corrector:
         k = self.cdbg.k
         f = self.opt.weak_region_len_factor
         if self._span_max_quality(raw_a, raw_b):
+            self._maxq_bp += raw_b - raw_a
             return ("raw", raw_a, raw_b)
         # same-unitig fast path (Correction.cpp:814-858). The splice-vs-raw
         # NW distance only feeds the quality char, so non-equal cases defer
@@ -1188,7 +1194,8 @@ class Corrector:
         worker-pool structure, Ratatosk.cpp:618-909)."""
         regions: List[RegionSpec] = []
         plans = []
-        with TR.span("plan", self.timers):
+        self._maxq_bp = 0
+        with TR.span("plan", self.timers) as span:
             reads_np = [np.asarray(r, dtype=np.uint8) for r in reads]
             haps = [(self.hap.hap_of(names[i])
                      if self.hap is not None and names is not None else -1)
@@ -1205,6 +1212,8 @@ class Corrector:
                 self._cur_hap = -1
             with TR.span("plan.splices"):
                 self._resolve_splices()
+            if span:
+                span.set("maxq_bp", self._maxq_bp)
         return reads_np, plans, regions
 
     def _resolve_splices(self) -> None:

@@ -227,34 +227,53 @@ def build_pass2_index(opt: CorrectOpt,
     confidence threshold are masked to N before coloring (Graph.cpp:1806-1814);
     reads shorter than min_len_2nd_pass are skipped. prebuilt_cdbg reuses the
     k2 graph already built for pass-1 edge rescue.
+
+    The build is one `index` span (trace.py), a tree of its own outside any
+    job's, with two children: `index.graph` (the k2 graph, or its reuse) and
+    `index.colour` (masking and coloring). Its fields: `k`, `reads` (reads
+    colored), `short` (reads under min_len_2nd_pass, skipped) and `masked`
+    (bases masked to N under min_confidence_2nd_pass).
     """
     if short_reads is None:
         short_reads, read_ids, _ = load_short_reads(opt)
     k = opt.k
     t0 = time.time()
-    if prebuilt_cdbg is not None:
-        cdbg = prebuilt_cdbg
-    else:
-        _log(opt, f"pass 2: building cDBG k={k}")
-        cdbg = B.build_cdbg(short_reads, k, min_count=opt.min_count_kmer)
-    _log(opt, f"pass 2: {cdbg.n_unitigs} unitigs, {cdbg.index.n} k-mers")
-    color_reads: List[np.ndarray] = []
-    min_q = 33 + int(opt.min_confidence_2nd_pass * opt.max_qual)
-    for codes, qual in corrected:
-        if len(codes) < opt.min_len_2nd_pass:
-            continue
-        masked = codes.copy()
-        if qual is not None and opt.min_confidence_2nd_pass > 0:
-            masked[qual < min_q] = 4
-        color_reads.append(masked)
-    for p in _expand_file_lists(opt.filename_helper_long_in):
-        for rec in fastx.read_fastx(p):
-            color_reads.append(rec.codes)
-    _log(opt, f"pass 2: coloring with {len(color_reads)} long reads")
-    colors = color_graph(cdbg, color_reads,
-                         cap=opt.max_cov_vertices,
-                         min_cov_edge=opt.min_cov_vertices,
-                         spill_bytes=opt.spill_bytes)
+    with TR.span("index") as span:
+        with TR.span("index.graph"):
+            if prebuilt_cdbg is not None:
+                cdbg = prebuilt_cdbg
+            else:
+                _log(opt, f"pass 2: building cDBG k={k}")
+                cdbg = B.build_cdbg(short_reads, k,
+                                    min_count=opt.min_count_kmer)
+        _log(opt, f"pass 2: {cdbg.n_unitigs} unitigs, {cdbg.index.n} k-mers")
+        with TR.span("index.colour"):
+            color_reads: List[np.ndarray] = []
+            n_short = n_masked = 0
+            min_q = 33 + int(opt.min_confidence_2nd_pass * opt.max_qual)
+            for codes, qual in corrected:
+                if len(codes) < opt.min_len_2nd_pass:
+                    n_short += 1
+                    continue
+                masked = codes.copy()
+                if qual is not None and opt.min_confidence_2nd_pass > 0:
+                    low = qual < min_q
+                    masked[low] = 4
+                    if span:
+                        n_masked += int(np.count_nonzero(low))
+                color_reads.append(masked)
+            for p in _expand_file_lists(opt.filename_helper_long_in):
+                for rec in fastx.read_fastx(p):
+                    color_reads.append(rec.codes)
+            _log(opt, f"pass 2: coloring with {len(color_reads)} long reads")
+            colors = color_graph(cdbg, color_reads,
+                                 cap=opt.max_cov_vertices,
+                                 min_cov_edge=opt.min_cov_vertices,
+                                 spill_bytes=opt.spill_bytes)
+        if span:
+            for key, v in (("k", cdbg.k), ("reads", len(color_reads)),
+                           ("short", n_short), ("masked", n_masked)):
+                span.set(key, v)
     _graph_build_event(opt, 2, cdbg, t0)
     return cdbg, colors
 

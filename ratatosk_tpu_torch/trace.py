@@ -35,11 +35,18 @@ Event vocabulary (stable keys, additive only):
   rescue        {edges, secs}
   snp           {sites, secs}
   span          {name, id, parent, job, batch, thread, t0_ns, t1_ns, cpu_ns
-                 [, first | batched]}: each span of the pass's job; `first`
-                 on the double buffer's `wait` spans, 1 for a job's batch 0;
-                 `batched` on the planner's `plan.runs` spans, 1 when the
-                 batch's exact runs were found in one pass over the batch
-                 (correct/runs_batch.py), 0 when read by read
+                 [, first | batched | maxq_bp]}: each span of the pass's
+                 job; `first` on the double buffer's `wait` spans, 1 for a
+                 job's batch 0; `batched` on the planner's `plan.runs`
+                 spans, 1 when the batch's exact runs were found in one pass
+                 over the batch (correct/runs_batch.py), 0 when read by
+                 read; `maxq_bp` on `plan` spans, the batch's bases that the
+                 pass-2 max-quality skip left raw
+
+The pass-2 index build (pipeline.build_pass2_index) is a span tree of its
+own, outside any job: `index` {k, reads, short, masked} over its children
+`index.graph` and `index.colour`. It is kept by `recording()` only; no
+event writes it.
 """
 
 from __future__ import annotations

@@ -96,10 +96,12 @@ def _tree(spans):
         assert s.job == root.id, s.name
         assert root.t0 <= s.t0 <= s.t1 <= root.t1, s.name
         assert s.cpu >= 0
-        # the fields: a wait's `first`, a plan.runs' `batched`
+        # the fields: a wait's `first`, a plan.runs' `batched`, a plan's
+        # `maxq_bp`
         assert s.fields is None or (
             {s.name: set(s.fields)}
-            in ({"wait": {"first"}}, {"plan.runs": {"batched"}})), s.name
+            in ({"wait": {"first"}}, {"plan.runs": {"batched"}},
+                {"plan": {"maxq_bp"}})), s.name
         if s is root:
             continue
         parent = by_id[s.parent]
@@ -276,3 +278,138 @@ def test_recording_nests_and_threads_take_their_parent():
     plan = next(s for s in outer.spans if s.name == "plan")
     assert (plan.parent, plan.job, plan.batch) == (root.id, root.id, 7)
     assert plan.thread != root.thread
+
+
+# ---------- pass 2: the index build's spans, max quality ----
+
+
+@pytest.fixture(scope="module")
+def pass2(tmp_path_factory):
+    """Pass-2 inputs on a 12 kbp genome: five ~2 kbp long reads at pass 1's
+    residual error, two of them under min_len_2nd_pass, and one more read
+    with 2,300 random bases planted between two stretches of the genome
+    (a gap region); qualities drawn over 0-40, so that
+    min_confidence_2nd_pass 0.5 masks a part of each read."""
+    tmp = tmp_path_factory.mktemp("torch_trace_p2")
+    rng = np.random.default_rng(2929)
+    genome = T.random_genome(rng, 12000)
+    sreads = T.short_reads(rng, genome, coverage=30.0, read_len=100)
+    reads = [noisy for noisy, _, _ in T.long_reads(
+        rng, genome, n=5, min_len=1800, max_len=2200, err=0.012)]
+    junk = rng.integers(0, 4, 2300).astype(np.uint8)
+    reads.append(np.concatenate([genome[1000:2500], junk,
+                                 genome[2500:4000]]))
+    quals = [rng.integers(33, 74, len(r)).astype(np.uint8) for r in reads]
+    opt = CorrectOpt(small_k=17, k=31, beam_width=8, batch_regions=32,
+                     read_batch_bp=4000, nb_threads=1, weak_seed_min_gap=80,
+                     min_len_2nd_pass=2000, min_confidence_2nd_pass=0.5)
+    lr = tmp / "p1out.fq"
+    with open(lr, "w") as f:
+        for i, r in enumerate(reads):
+            f.write(f"@r{i}\n{dna.decode(r)}\n+\n{'!' * len(r)}\n")
+    return opt, sreads, reads, quals, str(lr), tmp
+
+
+def _index(opt, sreads, reads, quals, prebuilt=None):
+    return pipeline.build_pass2_index(
+        opt, zip(reads, quals), sreads, list(range(len(sreads))),
+        prebuilt_cdbg=prebuilt)
+
+
+@pytest.mark.parametrize("prebuilt", [False, True])
+def test_pass2_index_is_one_span_tree_with_its_counts(pass2, prebuilt):
+    opt, sreads, reads, quals, _, _ = pass2
+    from ratatosk_tpu_torch.graph import build as B
+    cdbg0 = (B.build_cdbg(sreads, opt.k, min_count=opt.min_count_kmer)
+             if prebuilt else None)
+    with TR.recording() as rec:
+        cdbg, _ = _index(opt, sreads, reads, quals, cdbg0)
+    assert [s.name for s in rec.spans] == ["index.graph", "index.colour",
+                                           "index"]
+    graph, colour, root = rec.spans
+    assert root.parent is None and root.job is None and root.batch is None
+    assert graph.parent == colour.parent == root.id
+    assert root.t0 <= graph.t0 <= graph.t1 <= colour.t0 <= colour.t1 \
+        <= root.t1
+    assert graph.fields is None and colour.fields is None
+    min_q = 33 + int(opt.min_confidence_2nd_pass * opt.max_qual)
+    long_ = [i for i, r in enumerate(reads) if len(r) >= opt.min_len_2nd_pass]
+    assert 0 < len(long_) < len(reads)
+    assert root.fields == {
+        "k": opt.k, "reads": len(long_), "short": len(reads) - len(long_),
+        "masked": sum(int((quals[i] < min_q).sum()) for i in long_)}
+    assert cdbg.k == opt.k and (cdbg0 is None or cdbg is cdbg0)
+
+
+@pytest.fixture(scope="module")
+def pass2_job(pass2):
+    opt, sreads, reads, quals, lr, tmp = pass2
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    o2 = pipeline._pass_opt(opt, 2)
+    cdbg, colors = _index(opt, sreads, reads, quals)
+    yield Corrector(cdbg, colors, o2, device="cpu"), o2, lr, tmp
+    torch.set_num_threads(n)
+
+
+def _gap_region(corr, reads, quals):
+    _, _, regions = corr.plan_batch(reads, quals)
+    return next(sp for sp in regions if sp.kind == "gap")
+
+
+def test_pass2_maxq_bp_is_the_planted_span(pass2, pass2_job):
+    """A gap region's raw span planted at maximal quality (the rest of the
+    read low) is what the plan span's maxq_bp counts; 0 with the skip off
+    (pass 1's options) on the same qualities."""
+    _, _, reads, _, _, _ = pass2
+    corr, o2, _, _ = pass2_job
+    low = [np.full(len(r), 33 + 10, np.uint8) for r in reads]
+    sp = _gap_region(corr, reads, low)
+    quals = [q.copy() for q in low]
+    quals[sp.read_idx][sp.raw_a:sp.raw_b] = 33 + corr.qv_max
+    for skip, want in ((True, sp.raw_b - sp.raw_a), (False, 0)):
+        corr.opt = dataclasses.replace(o2, skip_max_quality_regions=skip)
+        try:
+            with TR.recording() as rec:
+                _, _, regions = corr.plan_batch(reads, quals)
+        finally:
+            corr.opt = o2
+        plan, = [s for s in rec.spans if s.name == "plan"]
+        assert plan.fields == {"maxq_bp": want}
+        kept = [(r.read_idx, r.raw_a, r.raw_b) for r in regions]
+        assert ((sp.read_idx, sp.raw_a, sp.raw_b) in kept) == (not skip)
+    assert sp.raw_b - sp.raw_a > 0
+
+
+def test_pass2_same_output_recorded_or_not_and_off_keeps_no_span(
+        pass2, pass2_job, monkeypatch):
+    """Off, pass 2's index build and job make no Span; on, the FASTQ and the
+    index are the same."""
+    opt, sreads, reads, quals, _, _ = pass2
+    corr, o2, lr, tmp = pass2_job
+    made = []
+
+    class Counted(TR.Span):
+        __slots__ = ()
+
+        def __init__(self, *a, **kw):
+            made.append(1)
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(TR, "Span", Counted)
+
+    def job(out):
+        cdbg, colors = _index(opt, sreads, reads, quals)
+        pipeline.correct_file(Corrector(cdbg, colors, o2, device="cpu"), o2,
+                              [lr], str(tmp / out), 2)
+        with open(tmp / out, "rb") as f:
+            return cdbg, colors, f.read()
+
+    cdbg_off, colors_off, off = job("p2_off.fq")
+    assert made == [] and TR._active is None
+    with TR.recording() as rec:
+        cdbg_on, colors_on, on = job("p2_on.fq")
+    assert len(made) == len(rec.spans) > 0
+    assert off and on == off
+    assert np.array_equal(cdbg_on.index.keys_lo, cdbg_off.index.keys_lo)
+    assert np.array_equal(colors_on.coverage, colors_off.coverage)
