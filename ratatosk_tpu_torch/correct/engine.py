@@ -353,6 +353,20 @@ class Corrector:
         # the next batch's plan
         self.timers = {"plan": 0.0, "launch": 0.0, "finish": 0.0,
                        "wait": 0.0}
+        # the plan span's `proc` and `slice`: -1 and 0 in this process; a
+        # planner process (correct/plan_pool.py) sets its index and the
+        # slice of the batch it plans
+        self.plan_proc, self.plan_slice = -1, 0
+        # pipeline.correct_file's planner processes (plan_pool.PlanPool),
+        # started at its first call that takes them; close() stops them
+        self.plan_pool = None
+
+    def close(self) -> None:
+        """Stops the planner processes, if they started; a later
+        correct_file starts them again."""
+        if self.plan_pool is not None:
+            self.plan_pool.close()
+            self.plan_pool = None
 
     # ---------- helpers ----------
 
@@ -1214,6 +1228,8 @@ class Corrector:
                 self._resolve_splices()
             if span:
                 span.set("maxq_bp", self._maxq_bp)
+                span.set("proc", self.plan_proc)
+                span.set("slice", self.plan_slice)
         return reads_np, plans, regions
 
     def _resolve_splices(self) -> None:

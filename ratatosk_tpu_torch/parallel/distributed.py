@@ -279,6 +279,7 @@ def run_distributed_correct(opt, coordinator=None, num_processes=None,
                 trim_qual=opt.trim_qual if opt.pass1_only else 0),
             part1)
         os.remove(shard1)
+        corr.close()
         del corr, cdbg, colors
         # pass-1 -> pass-2 hand-off rides a collective instead of the
         # reference's shared-filesystem `.2.fastq` round trip (SURVEY §5):
@@ -379,6 +380,7 @@ def run_distributed_correct(opt, coordinator=None, num_processes=None,
                                       trim_qual=opt.trim_qual,
                                       raw_reads=raw_reads),
         part2)
+    corr2.close()
     os.remove(shard2)
     if p1_local is not None:
         os.remove(p1_local)

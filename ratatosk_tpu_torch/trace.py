@@ -35,13 +35,23 @@ Event vocabulary (stable keys, additive only):
   rescue        {edges, secs}
   snp           {sites, secs}
   span          {name, id, parent, job, batch, thread, t0_ns, t1_ns, cpu_ns
-                 [, first | batched | maxq_bp]}: each span of the pass's
-                 job; `first` on the double buffer's `wait` spans, 1 for a
-                 job's batch 0; `batched` on the planner's `plan.runs`
-                 spans, 1 when the batch's exact runs were found in one pass
-                 over the batch (correct/runs_batch.py), 0 when read by
-                 read; `maxq_bp` on `plan` spans, the batch's bases that the
-                 pass-2 max-quality skip left raw
+                 [, first, ahead | batched | maxq_bp, proc, slice[, priv_mb]]}:
+                 each span of the pass's job; `first` on the double buffer's
+                 `wait` spans, 1 for a job's batch 0, and `ahead`, the
+                 batch's plan slices already done when the wait opened;
+                 `batched` on the planner's `plan.runs` spans, 1 when the
+                 batch's exact runs were found in one pass over the batch
+                 (correct/runs_batch.py), 0 when read by read; on `plan`
+                 spans `maxq_bp`, the bases of the plan's reads that the
+                 pass-2 max-quality skip left raw, `proc`, the planner
+                 process's index (-1: planned in this process), `slice`, the
+                 slice of the batch it planned, and, from a planner process,
+                 `priv_mb`, that process's private memory after the plan (MB)
+
+A plan made in a planner process (correct/plan_pool.py) is recorded there
+and handed back with its result; `adopt` puts its spans under the job's
+span, with ids of this recorder and the planner process's pid as their
+thread.
 
 The pass-2 index build (pipeline.build_pass2_index) is a span tree of its
 own, outside any job: `index` {k, reads, short, masked} over its children
@@ -240,6 +250,30 @@ def recording():
         yield _active
     finally:
         _active = None
+
+
+def adopt(rows, parent, batch: int) -> None:
+    """Adds spans recorded elsewhere (`Span.as_dict` rows, children before
+    their parents, as a recorder closes them) to the open recording: new
+    ids, the rows' roots under `parent` (a span, or NOOP) at `batch`."""
+    rec = _active
+    if rec is None or not parent or not rows:
+        return
+    ids = {r["id"]: next(rec._ids) for r in rows}
+    for r in rows:
+        sp = Span.__new__(Span)
+        sp._rec, sp._timers = rec, None
+        sp.name, sp.thread = r["name"], r["thread"]
+        sp.t0, sp.t1, sp.cpu = r["t0_ns"], r["t1_ns"], r["cpu_ns"]
+        sp.id = ids[r["id"]]
+        sp.parent = ids.get(r["parent"], parent.id)
+        sp.job, sp.batch = parent.job, batch
+        sp.fields = {k: v for k, v in r.items() if k not in _ROW_KEYS} or None
+        rec._add(sp)
+
+
+_ROW_KEYS = frozenset(("name", "id", "parent", "job", "batch", "thread",
+                       "t0_ns", "t1_ns", "cpu_ns"))
 
 
 def seconds_by_batch(spans, names) -> Dict[int, Dict[str, float]]:

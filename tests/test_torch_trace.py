@@ -1,8 +1,9 @@
 """The port's spans and JSONL events (ratatosk_tpu_torch/trace.py) on a small
 correction job on the CPU: the recorder off costs nothing and records
-nothing, on it gives one span tree per job across the planner and driving
-threads, its spans feed Corrector.timers, its clock is the profiler's, the
-output does not move, and --trace-json writes the events and the spans."""
+nothing, on it gives one span tree per job across the planner processes or
+thread and the driving thread, its spans feed Corrector.timers, its clock is
+the profiler's, the output does not move, and --trace-json writes the
+events and the spans."""
 
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ def job(tmp_path_factory):
                                               list(range(len(sreads))))
     corr = Corrector(cdbg, colors, o1, device="cpu")
     yield corr, o1, str(lr), tmp
+    corr.close()
     torch.set_num_threads(n)
 
 
@@ -64,9 +66,9 @@ def run(job, threads: int, out: str, **opt_kw):
         return f.read()
 
 
-def recorded(job, threads: int, out: str):
+def recorded(job, threads: int, out: str, **opt_kw):
     with TR.recording() as rec:
-        data = run(job, threads, out)
+        data = run(job, threads, out, **opt_kw)
     return rec.spans, data
 
 
@@ -96,12 +98,14 @@ def _tree(spans):
         assert s.job == root.id, s.name
         assert root.t0 <= s.t0 <= s.t1 <= root.t1, s.name
         assert s.cpu >= 0
-        # the fields: a wait's `first`, a plan.runs' `batched`, a plan's
-        # `maxq_bp`
+        # the fields: a wait's `first` and `ahead`, a plan.runs'
+        # `batched`, a plan's `maxq_bp`, `proc` and `slice` (and `priv_mb`
+        # from a planner process)
         assert s.fields is None or (
             {s.name: set(s.fields)}
-            in ({"wait": {"first"}}, {"plan.runs": {"batched"}},
-                {"plan": {"maxq_bp"}})), s.name
+            in ({"wait": {"first", "ahead"}}, {"plan.runs": {"batched"}},
+                {"plan": {"maxq_bp", "proc", "slice"}},
+                {"plan": {"maxq_bp", "proc", "slice", "priv_mb"}})), s.name
         if s is root:
             continue
         parent = by_id[s.parent]
@@ -150,6 +154,46 @@ def test_tree_with_two_threads(job):
     # the (job, batch) pairs of the planner thread are the driving thread's
     assert {(s.job, s.batch) for s in plans} == \
         {(s.job, s.batch) for s in waits}
+
+
+def test_tree_with_planner_processes(job, monkeypatch):
+    """Three planner processes (as on an eight-core host), three reads in
+    batch 0 and one in batch 1: each slice's `plan` tree sits in the job's
+    tree at its batch, on its worker's pid, with `proc`, `slice` and
+    `priv_mb`; the wait carries `ahead`; a `plan.merge` a batch on the
+    driving thread after its wait; the plan spans sum to timers["plan"]."""
+    import os
+
+    from ratatosk_tpu_torch.correct import plan_pool as PP
+    monkeypatch.setattr(PP, "usable_cores", lambda: list(range(8)))
+    monkeypatch.setattr(PP, "worker_cores",
+                        lambda cores: sorted(os.sched_getaffinity(0)))
+    spans, _ = recorded(job, 2, "procs.fq", read_batch_bp=4500)
+    root = _tree(spans)
+    by_id = {s.id: s for s in spans}
+    plans = [s for s in spans if s.name == "plan"]
+    assert sorted((s.batch, s.fields["slice"]) for s in plans) == \
+        [(0, 0), (0, 1), (0, 2), (1, 0)]
+    for p in plans:
+        assert p.parent == root.id and p.thread != root.thread
+        assert 0 <= p.fields["proc"] < 3 and p.fields["priv_mb"] > 0
+        kids = [s for s in spans if s.parent == p.id]
+        assert {s.name for s in kids} == set(PLAN_PARTS)
+        assert all(s.thread == p.thread and s.batch == p.batch
+                   for s in kids)
+    assert len({p.thread for p in plans if p.batch == 0}) == 3
+    assert len({(p.thread, p.fields["proc"]) for p in plans}) == \
+        len({p.thread for p in plans})
+    waits = {s.batch: s for s in spans if s.name == "wait"}
+    merges = [s for s in spans if s.name == "plan.merge"]
+    assert sorted(waits) == sorted(s.batch for s in merges) == [0, 1]
+    assert waits[0].fields["ahead"] in (0, 1, 2, 3)
+    assert waits[1].fields["ahead"] in (0, 1)
+    for m in merges:
+        assert by_id[m.parent] is root and m.thread == root.thread
+        assert waits[m.batch].t1 <= m.t0
+    got = sum(s.seconds() for s in plans)
+    assert got == pytest.approx(job[0].timers["plan"], rel=1e-9, abs=1e-12)
 
 
 @pytest.mark.parametrize("threads", [1, 2])
@@ -375,7 +419,7 @@ def test_pass2_maxq_bp_is_the_planted_span(pass2, pass2_job):
         finally:
             corr.opt = o2
         plan, = [s for s in rec.spans if s.name == "plan"]
-        assert plan.fields == {"maxq_bp": want}
+        assert plan.fields == {"maxq_bp": want, "proc": -1, "slice": 0}
         kept = [(r.read_idx, r.raw_a, r.raw_b) for r in regions]
         assert ((sp.read_idx, sp.raw_a, sp.raw_b) in kept) == (not skip)
     assert sp.raw_b - sp.raw_a > 0
