@@ -1199,7 +1199,7 @@ def _first_batch(path: str, batch_bp: int):
 
 
 def _probe_spans(cdbg, colors, runs_raw, reads, min_gap: int):
-    """The anchor-free spans Corrector._plan_seeds probes for 1-edit seeds
+    """The anchor-free spans Planner._plan_seeds probes for 1-edit seeds
     (pass 1: no span is at maximal quality)."""
     from ratatosk_tpu_torch.correct.seeds import filter_runs_by_color
     k = cdbg.k

@@ -1,58 +1,51 @@
-"""Planner processes: the double buffer's plan of a read batch, in slices.
+"""Where and how pipeline.correct_file plans a read batch: three planners,
+each with `submit(batch, job, b)` and `collect(ticket, job, b, timers)`.
 
-pipeline.correct_file plans read batch N+1 while its driving thread
-launches, finishes and writes batch N. On this module's path, W planner
-processes plan the batch, each running the unchanged `Corrector.plan_batch`
-on one contiguous slice of its reads (about equal bases each, `split`), and
-the driving thread merges the slices in read order (`merge`). `plan_batch`
-is per read apart from the numbering of its regions: the exact runs, the
-probe's spans, `_plan_read` and the splices each take one read at a time.
-So the merge, which moves each slice's region and read indices past the
-slices before it, gives the whole batch's plan field for field, and the
-launches are composed as before. The double buffer keeps its depth: one
-batch planned ahead.
+`planner_for` holds the whole rule. With one thread (`nb_threads`) each
+batch is planned inline (`Inline`). With more, batch N+1 is planned while
+the driving thread launches, finishes and writes batch N (the double
+buffer): in W planner processes (`PlanPool`) where the host planner plans
+on the host index (no device planner, sharded index or mesh) on a host with
+more than two usable cores, else on one planner thread (`OnThread`). The
+device planner and the sharded index touch CUDA while they plan, and CUDA
+does not survive a fork.
 
-Who takes the pool (`wanted`): a job of more than one thread
-(`nb_threads`) planned by the host planner on the host index (no device
-planner, no sharded index, no mesh) on a host with more than two usable
-cores. The device planner and the sharded index touch CUDA while they plan,
-and CUDA does not survive a fork, so they plan on a thread of this process;
-one thread plans inline.
+Each process runs the unchanged `Planner.plan_batch` on one contiguous
+slice of the reads (about equal bases each, `split`). The plan is per read
+apart from the numbering of its regions, so the slices merged in read order
+(`merge`) give the whole batch's plan field for field.
 
-Fork. A worker needs the Corrector's graph, colours and index; forked from
-this process it shares their pages instead of holding a copy. The pool
-starts once per Corrector, at the first correct_file that takes it, and
-forks every worker before the pool starts a thread of its own. The index's
-lazy tables are built first (`_prepare`), so that the workers share them,
-and `gc.freeze()` keeps the collector of either side from writing into
-every inherited object (each write copies a page). A worker runs Python,
-numpy and the port's native libraries, which start their threads per call;
-never torch or CUDA. torch marks a process forked after CUDA's
-initialisation, and any CUDA call there raises. The workers plan with the
-Corrector as it stood when they started.
-
-Cores: W and the cores the workers run on follow the cores this process
-may use (`worker_count`, `worker_cores`); the driving thread keeps one.
+The pool starts once per Planner (`pools`), at the first job that takes it,
+and forks every worker before it starts a thread of its own; the workers
+share the Planner's pages and plan with it as it stood then. The index's
+lazy tables are built first (`_prepare`), and `gc.freeze()` keeps either
+side's collector from writing to, and so copying, every inherited page. A
+worker never runs torch or CUDA: any CUDA call in a process forked after
+CUDA's initialisation raises. W and the workers' cores follow the cores
+this process may use (`worker_count`, `worker_cores`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import multiprocessing
 import os
 import pickle
 import weakref
-from concurrent.futures import ProcessPoolExecutor
+from concurrent import futures
 from concurrent.futures.process import BrokenProcessPool
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ratatosk_tpu_torch import trace as TR
 
-# in a worker, the Corrector it plans with; in this process, the Corrector
-# only while the pool forks its workers
-_corrector = None
+# in a worker, the Planner it plans with and the worker's index; in this
+# process, the Planner only while the pool forks its workers
+_planner, _proc = None, -1
+# the started PlanPool of each Planner
+pools = weakref.WeakKeyDictionary()
 
 
 def usable_cores() -> List[int]:
@@ -70,26 +63,72 @@ def worker_cores(cores: List[int]) -> List[int]:
     return cores[1:]
 
 
-def wanted(corrector, opt) -> bool:
-    """Whether correct_file plans `corrector`'s batches in planner
-    processes."""
-    return (opt.nb_threads > 1 and corrector.devplan is None
-            and corrector.sharded is None and corrector.mesh is None
-            and len(usable_cores()) > 2)
+@contextlib.contextmanager
+def planner_for(corrector, opt):
+    """The planner of a correct_file job on `corrector` with `opt`, for the
+    block; a Planner's processes outlive it."""
+    if opt.nb_threads <= 1:
+        yield Inline(corrector)
+    elif (corrector.devplan is not None or corrector.sharded is not None
+          or corrector.mesh is not None or len(usable_cores()) <= 2):
+        with futures.ThreadPoolExecutor(max_workers=1) as ex:
+            yield OnThread(corrector, ex)
+    else:
+        pool = pools.get(corrector.planner)
+        if pool is None or pool.closed:
+            cores = usable_cores()
+            pool = PlanPool(corrector.planner, worker_count(len(cores)),
+                            worker_cores(cores))
+            pools[corrector.planner] = pool
+        yield pool
 
 
-def pool_for(corrector, opt) -> Optional["PlanPool"]:
-    """`corrector`'s planner processes, started at the first call that
-    takes them; None where it plans in this process."""
-    if not wanted(corrector, opt):
-        return None
-    pool = corrector.plan_pool
-    if pool is None or pool.closed:
-        cores = usable_cores()
-        pool = PlanPool(corrector, worker_count(len(cores)),
-                        worker_cores(cores))
-        corrector.plan_pool = pool
-    return pool
+def close(planner) -> None:
+    """Stops `planner`'s processes, if they started."""
+    if planner in pools:
+        pools.pop(planner).close()
+
+
+def _wait(futs, b: int, timers: dict) -> None:
+    # the double buffer's wait for batch b's plan: `ahead`, futures done
+    with TR.span("wait", timers) as span:
+        if span:
+            span.set("first", int(b == 0))
+            span.set("ahead", sum(f.done() for f in futs))
+        futures.wait(futs)
+
+
+class Inline:
+    """Plans each batch on the driving thread when it is submitted, under
+    the job's span, through `corrector.plan_batch` as it stands then."""
+    ahead = 0
+
+    def __init__(self, corrector):
+        self.corrector = corrector
+
+    def submit(self, batch, job, b: int):
+        reads, quals, names = batch
+        with TR.within(job, b):
+            return names, quals, self.corrector.plan_batch(reads, quals,
+                                                           names)
+
+    def collect(self, planned, job, b: int, timers: dict):
+        return planned
+
+
+class OnThread(Inline):
+    """Plans each batch as Inline does, on one planner thread."""
+    ahead = 1
+
+    def __init__(self, corrector, ex):
+        self.corrector, self._ex = corrector, ex
+
+    def submit(self, batch, job, b: int):
+        return self._ex.submit(super().submit, batch, job, b)
+
+    def collect(self, fut, job, b: int, timers: dict):
+        _wait([fut], b, timers)
+        return fut.result()
 
 
 def split(lengths: Sequence[int], w: int) -> List[Tuple[int, int]]:
@@ -142,24 +181,25 @@ def private_mb() -> Optional[int]:
     return None
 
 
-def _prepare(corrector) -> None:
+def _prepare(planner) -> None:
     """Builds the lazy tables of the index that the host planner reads, so
     that the forked workers share them."""
     from ratatosk_tpu_torch.correct import seeds
     from ratatosk_tpu_torch.ops import native_kmers as NK
-    index = corrector.cdbg.index
+    index = planner.cdbg.index
     native = NK.available()
     if native:
         NK.hash_dir(index)
-    if corrector.opt.use_weak_seeds:
+    if planner.opt.use_weak_seeds:
         seeds._probe_prefilter(index)
         if native:
             seeds._half_filter(index)
 
 
 def _start_worker(counter, cores: List[int]) -> None:
+    global _proc
     with counter.get_lock():   # the worker's index among the workers
-        _corrector.plan_proc = counter.value
+        _proc = counter.value
         counter.value += 1
     TR._active = None   # a recording open at the fork is the parent's
     if cores:
@@ -169,20 +209,18 @@ def _start_worker(counter, cores: List[int]) -> None:
 def _plan_slice(reads, quals, names, s: int, traced: bool) -> bytes:
     """In a worker: slice `s` of a batch, planned; pickled here so that the
     driving thread, not the pool's thread, unpickles it."""
-    corr = _corrector
-    corr.plan_slice = s
-    corr.timers = dict.fromkeys(corr.timers, 0.0)
+    timers = {"plan": 0.0}
     rows = None
+    with TR.recording() if traced else contextlib.nullcontext() as rec:
+        _, plans, regions = _planner.plan_batch(reads, quals, names, timers)
     if traced:
-        with TR.recording() as rec:
-            _, plans, regions = corr.plan_batch(reads, quals, names)
         rows = [sp.as_dict() for sp in rec.spans]
+        plan = next(r for r in rows if r["name"] == "plan")
+        plan.update(proc=_proc, slice=s)
         priv = private_mb()
         if priv is not None:
-            next(r for r in rows if r["name"] == "plan")["priv_mb"] = priv
-    else:
-        _, plans, regions = corr.plan_batch(reads, quals, names)
-    return pickle.dumps((plans, regions, corr.timers["plan"], rows),
+            plan["priv_mb"] = priv
+    return pickle.dumps((plans, regions, timers["plan"], rows),
                         pickle.HIGHEST_PROTOCOL)
 
 
@@ -191,31 +229,23 @@ def _shutdown(executor) -> None:
     gc.unfreeze()
 
 
-class Ticket(NamedTuple):
-    """A batch submitted to the pool: its reads and its slices' futures."""
-    reads: list
-    quals: Optional[list]
-    names: list
-    bounds: List[Tuple[int, int]]
-    futures: list
-
-
 class PlanPool:
     """W planner processes forked from this one, each with its copy of one
-    Corrector; closed with it (Corrector.close, or when it is collected)."""
+    Planner; closed with it (`close`, or when it is collected)."""
+    ahead = 1
 
-    def __init__(self, corrector, workers: int, cores: List[int]):
-        global _corrector
-        _prepare(corrector)
+    def __init__(self, planner, workers: int, cores: List[int]):
+        global _planner
+        _prepare(planner)
         ctx = multiprocessing.get_context("fork")
         gc.collect()
         gc.freeze()
-        _corrector = corrector
+        _planner = planner
         ex = None
         try:
-            ex = ProcessPoolExecutor(workers, mp_context=ctx,
-                                     initializer=_start_worker,
-                                     initargs=(ctx.Value("i", 0), cores))
+            ex = futures.ProcessPoolExecutor(
+                workers, mp_context=ctx, initializer=_start_worker,
+                initargs=(ctx.Value("i", 0), cores))
             # the first task forks every worker, before the pool's thread
             ex.submit(int).result()
         except BaseException:
@@ -224,39 +254,41 @@ class PlanPool:
             gc.unfreeze()
             raise
         finally:
-            _corrector = None
+            _planner = None
         self.workers = workers
-        self._close = weakref.finalize(corrector, _shutdown, ex)
+        # close() stops the workers, waiting for the slices they plan
+        self.close = weakref.finalize(planner, _shutdown, ex)
         self._ex = ex
 
     @property
     def closed(self) -> bool:
-        return not self._close.alive
+        return not self.close.alive
 
-    def close(self) -> None:
-        """Stops the workers (waiting for the slices they are planning)."""
-        self._close()
-
-    def submit(self, reads, quals, names, traced: bool) -> Ticket:
-        """Batch `reads` (with `quals`, None or one per read, and `names`)
-        in slices to the workers; `traced` records their spans."""
+    def submit(self, batch, job, b: int):
+        """Batch b, (reads, quals: None or one per read, names), in slices
+        to the workers, which record their spans where `job` records: the
+        ticket (batch, slices, their futures)."""
+        reads, quals, names = batch
         bounds = split([len(r) for r in reads], self.workers)
         try:
             futs = [self._ex.submit(
                 _plan_slice, reads[lo:hi],
                 None if quals is None else quals[lo:hi], names[lo:hi], s,
-                traced) for s, (lo, hi) in enumerate(bounds)]
+                bool(job)) for s, (lo, hi) in enumerate(bounds)]
         except BrokenProcessPool:
             self.close()
             raise
-        return Ticket(reads, quals, names, bounds, futs)
+        return batch, bounds, futs
 
-    def collect(self, ticket: Ticket, job, batch: int, timers: dict):
-        """On the driving thread, inside a `plan.merge` span: the batch's
-        (names, quals, (reads_np, plans, regions)), as the in-process plan
-        gives it. Adds the slices' planner seconds to timers["plan"] and
-        their spans to `job`'s tree at `batch`; raises what a slice raised.
-        A worker that died breaks the pool, which closes."""
+    def collect(self, ticket, job, batch: int, timers: dict):
+        """On the driving thread, after the wait for the slices, inside a
+        `plan.merge` span: the batch's (names, quals, (reads_np, plans,
+        regions)), as the in-process plan gives it. Adds the slices'
+        planner seconds to timers["plan"] and their spans to `job`'s tree
+        at `batch`; raises what a slice raised. A worker that died breaks
+        the pool, which closes."""
+        (reads, quals, names), bounds, futs = ticket
+        _wait(futs, batch, timers)
         with TR.span("plan.merge"):
             parts = []
             # unpickling makes thousands of objects, and the collector
@@ -264,7 +296,7 @@ class PlanPool:
             gc_on = gc.isenabled()
             gc.disable()
             try:
-                for (lo, _), fut in zip(ticket.bounds, ticket.futures):
+                for (lo, _), fut in zip(bounds, futs):
                     plans, regions, plan_s, rows = pickle.loads(fut.result())
                     timers["plan"] += plan_s
                     TR.adopt(rows, job, batch)
@@ -276,5 +308,5 @@ class PlanPool:
                 if gc_on:
                     gc.enable()
             plans, regions = merge(parts)
-            reads_np = [np.asarray(r, dtype=np.uint8) for r in ticket.reads]
-        return ticket.names, ticket.quals, (reads_np, plans, regions)
+            reads_np = [np.asarray(r, dtype=np.uint8) for r in reads]
+        return names, quals, (reads_np, plans, regions)

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ratatosk_tpu_torch.correct import plan_pool as PP
+
 # gloo's default timeout (30 min) is shorter than host 0's index build at
 # genome scale, which every other host waits for at a barrier
 TIMEOUT = datetime.timedelta(hours=12)
@@ -279,7 +281,7 @@ def run_distributed_correct(opt, coordinator=None, num_processes=None,
                 trim_qual=opt.trim_qual if opt.pass1_only else 0),
             part1)
         os.remove(shard1)
-        corr.close()
+        PP.close(corr.planner)
         del corr, cdbg, colors
         # pass-1 -> pass-2 hand-off rides a collective instead of the
         # reference's shared-filesystem `.2.fastq` round trip (SURVEY §5):
@@ -380,7 +382,7 @@ def run_distributed_correct(opt, coordinator=None, num_processes=None,
                                       trim_qual=opt.trim_qual,
                                       raw_reads=raw_reads),
         part2)
-    corr2.close()
+    PP.close(corr2.planner)
     os.remove(shard2)
     if p1_local is not None:
         os.remove(p1_local)

@@ -9,6 +9,8 @@ import numpy as np
 from ratatosk_tpu_torch import dna
 from ratatosk_tpu_torch.config import CorrectOpt
 from ratatosk_tpu_torch.correct.engine import Corrector, RegionSpec
+from ratatosk_tpu_torch.correct.planner import _Call
+from ratatosk_tpu_torch.correct.seeds import filter_runs_by_color, find_runs
 from ratatosk_tpu_torch.graph import build as B
 from ratatosk_tpu_torch.graph.colors import color_graph
 
@@ -116,5 +118,6 @@ def toy_region_specs(corr: Corrector, genome: np.ndarray, rng,
         tries += 1
         start = int(rng.integers(0, max(len(genome) - 1200, 1)))
         noisy, _ = noisy_read(rng, genome, start, min(1000, len(genome) - start), err)
-        corr._plan_read(0, noisy, specs)
+        runs = filter_runs_by_color(find_runs(corr.cdbg, noisy), corr.colors)
+        corr.planner._plan_read(_Call(), 0, noisy, specs, runs, [], -1, None)
     return specs[:n_regions]

@@ -2,7 +2,8 @@
 event stream of `--trace-json PATH` (CorrectOpt.trace_json).
 
 Spans. `span(name)` opens one at a layer boundary of the correction job
-(pipeline.correct_file and correct/engine.py). A span records its name, its
+(pipeline.correct_file, correct/plan_pool.py, correct/planner.py and
+correct/engine.py). A span records its name, its
 id and its parent's, the (job, batch) pair it belongs to, the thread, its
 start and end from `time.time_ns()` and the thread's CPU nanoseconds over
 it (`time.thread_time_ns()`), and, where a reader needs one, an integer

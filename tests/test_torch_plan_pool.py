@@ -2,8 +2,8 @@
 CPU: a batch planned in slices and merged equals the batch planned whole,
 field for field, in both passes; correct_file with the pool writes the
 FASTQ of one thread; a worker's failure raises from correct_file, soon;
-the pool starts once per Corrector and close() ends its workers; the
-configurations that plan on a thread or inline start none.
+the pool starts once per Planner and plan_pool.close ends its workers;
+the configurations that plan on a thread or inline start none.
 
 Each test runs under a time limit of its own (`limited`)."""
 
@@ -27,6 +27,7 @@ from ratatosk_tpu_torch import trace as TR
 from ratatosk_tpu_torch.config import CorrectOpt
 from ratatosk_tpu_torch.correct import plan_pool as PP
 from ratatosk_tpu_torch.correct.engine import Corrector, RegionSpec
+from ratatosk_tpu_torch.correct.planner import Planner
 from ratatosk_tpu_torch.graph import phasing as PH
 
 
@@ -120,7 +121,7 @@ def passes(data):
     }
     yield out
     for corr, *_ in out.values():
-        corr.close()
+        PP.close(corr.planner)
     torch.set_num_threads(n)
 
 
@@ -227,10 +228,10 @@ def test_pool_writes_the_fastq_of_one_thread(passes, data, eight_cores,
     corr, opt, _, _, src = passes[pass_no]
     tmp = data["tmp"]
     one = _correct(corr, opt, src, str(tmp / f"one{pass_no}.fq"), pass_no, 1)
-    assert corr.plan_pool is None
+    assert corr.planner not in PP.pools
     pooled = _correct(corr, opt, src, str(tmp / f"pool{pass_no}.fq"),
                       pass_no, 2)
-    assert corr.plan_pool is not None and corr.plan_pool.workers == 3
+    assert PP.pools[corr.planner].workers == 3
     assert one and pooled == one
 
 
@@ -242,7 +243,7 @@ def fresh(passes, data, eight_cores):
     corr = Corrector(corr0.cdbg, corr0.colors, opt, device="cpu")
     yield (corr, dataclasses.replace(opt, nb_threads=2, read_batch_bp=3000),
            src, str(data["tmp"] / "fresh.fq"))
-    corr.close()
+    PP.close(corr.planner)
 
 
 def _kids():
@@ -261,9 +262,9 @@ def test_pool_starts_once_and_close_leaves_no_child(fresh):
     workers = _kids() - before
     assert len(workers) == 3
     assert pids[0] <= workers and pids[1] <= workers and len(pids[0]) > 1
-    pool = corr.plan_pool
-    corr.close()
-    assert pool.closed and corr.plan_pool is None
+    pool = PP.pools[corr.planner]
+    PP.close(corr.planner)
+    assert pool.closed and corr.planner not in PP.pools
     assert not (_kids() & workers)
     for pid in workers:
         with pytest.raises(ProcessLookupError):
@@ -294,17 +295,17 @@ def test_a_worker_failure_raises_from_correct_file(fresh, monkeypatch, plan,
     within seconds; a broken pool closes and the next call starts
     another."""
     corr, opt, src, out = fresh
-    planner = Corrector.plan_batch
-    monkeypatch.setattr(Corrector, "plan_batch", plan)
+    planner = Planner.plan_batch
+    monkeypatch.setattr(Planner, "plan_batch", plan)
     t0 = time.monotonic()
     with pytest.raises(raises):
         pipeline.correct_file(corr, opt, [src], out, 1)
     assert time.monotonic() - t0 < 30
     if plan is _die:
-        assert corr.plan_pool.closed
-        monkeypatch.setattr(Corrector, "plan_batch", planner)
+        assert PP.pools[corr.planner].closed
+        monkeypatch.setattr(Planner, "plan_batch", planner)
         pipeline.correct_file(corr, opt, [src], out, 1)
-        assert not corr.plan_pool.closed
+        assert not PP.pools[corr.planner].closed
 
 
 @pytest.mark.parametrize("config", ["one_thread", "device_planner",
@@ -329,7 +330,7 @@ def test_thread_and_inline_paths_start_no_pool(passes, data, eight_cores,
     before = _kids()
     got = _correct(corr, opt, src, str(data["tmp"] / f"{config}.fq"), 1,
                    threads)
-    assert corr.plan_pool is None and _kids() == before
+    assert corr.planner not in PP.pools and _kids() == before
     want = _correct(passes[1][0], passes[1][1], src,
                     str(data["tmp"] / f"{config}_want.fq"), 1, 1)
     assert got and got == want
@@ -355,11 +356,11 @@ def test_a_worker_forked_after_cuda_cannot_touch_it(tmp_path, monkeypatch):
     monkeypatch.setattr(PP, "usable_cores", lambda: list(range(8)))
     monkeypatch.setattr(PP, "worker_cores",
                         lambda cores: sorted(os.sched_getaffinity(0)))
-    monkeypatch.setattr(Corrector, "plan_batch", _touch_cuda)
+    monkeypatch.setattr(Planner, "plan_batch", _touch_cuda)
     corr = Corrector(cdbg, colors, opt, device="cuda:0")
     try:
         with pytest.raises(RuntimeError, match="forked subprocess"):
             pipeline.correct_file(corr, opt, [str(src)],
                                   str(tmp_path / "out.fq"), 1)
     finally:
-        corr.close()
+        PP.close(corr.planner)

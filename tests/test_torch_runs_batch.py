@@ -16,7 +16,7 @@ import pytest
 from ratatosk_tpu_torch import testing as T
 from ratatosk_tpu_torch import trace as TR
 from ratatosk_tpu_torch.config import CorrectOpt
-from ratatosk_tpu_torch.correct import engine
+from ratatosk_tpu_torch.correct import planner
 from ratatosk_tpu_torch.correct.engine import Corrector
 from ratatosk_tpu_torch.correct.runs_batch import find_runs_batch
 from ratatosk_tpu_torch.correct.seeds import filter_runs_by_color, find_runs
@@ -185,7 +185,8 @@ def test_plan_runs_span_says_whether_the_batch_went_through_at_once(
     sharded = Corrector(corr.cdbg, corr.colors,
                         dataclasses.replace(corr.opt, shard_index_min_keys=0),
                         mesh=M.make_mesh(devices=["cpu", "cpu"]))
-    assert sharded.sharded is not None and sharded._probe() is not None
+    assert sharded.sharded is not None
+    assert sharded.planner._probe() is not None
     flags, via_shards = batched_flags(sharded, reads)
     assert flags == [0]
     assert_same(via_shards, host)
@@ -217,7 +218,7 @@ def test_plan_batch_equals_the_per_read_path(toy, monkeypatch):
     corr, reads = toy
     new = corr.plan_batch(reads)
     monkeypatch.setattr(
-        engine, "find_runs_batch",
+        planner, "find_runs_batch",
         lambda cdbg, colors, rr: per_read(cdbg, colors, rr))
     old = corr.plan_batch(reads)
     assert len(new[2]) == len(old[2]) > 0

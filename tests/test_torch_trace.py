@@ -20,6 +20,7 @@ from ratatosk_tpu_torch import dna, pipeline
 from ratatosk_tpu_torch import testing as T
 from ratatosk_tpu_torch import trace as TR
 from ratatosk_tpu_torch.config import CorrectOpt
+from ratatosk_tpu_torch.correct import plan_pool as PP
 from ratatosk_tpu_torch.correct.engine import Corrector
 
 # children of a job on the thread that drives it, of a plan on the planner's
@@ -52,7 +53,7 @@ def job(tmp_path_factory):
                                               list(range(len(sreads))))
     corr = Corrector(cdbg, colors, o1, device="cpu")
     yield corr, o1, str(lr), tmp
-    corr.close()
+    PP.close(corr.planner)
     torch.set_num_threads(n)
 
 
@@ -164,7 +165,6 @@ def test_tree_with_planner_processes(job, monkeypatch):
     driving thread after its wait; the plan spans sum to timers["plan"]."""
     import os
 
-    from ratatosk_tpu_torch.correct import plan_pool as PP
     monkeypatch.setattr(PP, "usable_cores", lambda: list(range(8)))
     monkeypatch.setattr(PP, "worker_cores",
                         lambda cores: sorted(os.sched_getaffinity(0)))
@@ -412,12 +412,13 @@ def test_pass2_maxq_bp_is_the_planted_span(pass2, pass2_job):
     quals = [q.copy() for q in low]
     quals[sp.read_idx][sp.raw_a:sp.raw_b] = 33 + corr.qv_max
     for skip, want in ((True, sp.raw_b - sp.raw_a), (False, 0)):
-        corr.opt = dataclasses.replace(o2, skip_max_quality_regions=skip)
+        corr.planner.opt = dataclasses.replace(
+            o2, skip_max_quality_regions=skip)
         try:
             with TR.recording() as rec:
                 _, _, regions = corr.plan_batch(reads, quals)
         finally:
-            corr.opt = o2
+            corr.planner.opt = o2
         plan, = [s for s in rec.spans if s.name == "plan"]
         assert plan.fields == {"maxq_bp": want, "proc": -1, "slice": 0}
         kept = [(r.read_idx, r.raw_a, r.raw_b) for r in regions]
